@@ -1,0 +1,49 @@
+"""JAX parameter trees <-> the port's tensors.
+
+The JAX package keeps convolution kernels HWIO ([kh, kw, I, O]) and the
+supernet's stacked candidates as [8, kh, kw, I, O]; the port keeps them OIHW
+([O, I, kh, kw]) and [8, O, I, kh, kw]. In both trees the 4-d and 5-d leaves
+are exactly the convolution kernels, so the rank decides the layout; every
+other leaf (dense and SE kernels, biases, arch parameters, masks) is copied
+as it is. Keys and nesting are the same in both trees.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_TO_TORCH = {4: (3, 2, 0, 1), 5: (0, 4, 3, 1, 2)}
+_TO_JAX = {4: (2, 3, 1, 0), 5: (0, 3, 4, 2, 1)}
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(tree, device="cpu"):
+    """numpy (or JAX) parameter tree -> f32 tensors in the port's layout."""
+    def leaf(a):
+        a = np.asarray(a, np.float32)
+        if a.ndim in _TO_TORCH:
+            a = np.transpose(a, _TO_TORCH[a.ndim])
+        return torch.tensor(np.ascontiguousarray(a), device=device)
+    return _map(tree, leaf)
+
+
+def params_to_jax(tree):
+    """The port's parameter tree -> numpy arrays in the JAX layout."""
+    def leaf(t):
+        a = t.detach().cpu().numpy()
+        if a.ndim in _TO_JAX:
+            a = np.ascontiguousarray(np.transpose(a, _TO_JAX[a.ndim]))
+        return a
+    return _map(tree, leaf)
+
+
+def arch_from_jax(tree, device="cpu"):
+    """Arch parameters (no layout change) -> f32 tensors."""
+    return _map(tree, lambda a: torch.tensor(np.asarray(a, np.float32),
+                                             device=device))

@@ -1,0 +1,471 @@
+"""The TF-NAS supernet with stacked MixedOps
+(counterpart of tfnas_tpu/models/supernet.py, default lowerings only).
+
+Every block stores its 8 candidates stacked along a leading op axis at one
+canonical shape: k3 depthwise taps zero-padded to 5x5, e3 widths padded to
+the e6 width W = 8 * ic, SE weights zero for candidates without SE. Width
+elasticity is channel masks over these fixed shapes; masked channels give
+exactly zero activations, and `update_masks` keeps their updates exactly
+zero.
+
+Parameter layout (`convert.py` maps it from and to the JAX trees):
+expand [8, W, ic, 1, 1], depth [8, W, 1, 5, 5], project [8, oc, W, 1, 1]
+(stacked OIHW); SE kernels keep the JAX [8, W, SE] / [8, SE, W].
+
+Public forwards take x as [N, H, W, C]; inside, activations are logical NCHW
+(channels_last in memory when x is contiguous NHWC). The depthwise middle of
+every block runs through `fused_dw_norm_act`, which launches the
+hand-written CUDA kernel for tensors on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..kernels.fused_dw import fold_bn_mask, fused_dw_norm_act
+from ..ops.activations import apply_act
+from ..ops.batchnorm import BN_EPS, batch_norm, stat_dtype
+from ..ops.conv import init_conv_kernel, torch_uniform_init
+from ..ops.layers import ConvLayer, LinearLayer, MBInvertedResBlock
+from . import search_space as ss
+
+KMAX = 5  # canonical depthwise tap size (k3 kernels zero-padded)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSite:
+    """One searchable block position in the macro skeleton."""
+    stage: str
+    block: str
+    global_idx: int
+    ic: int
+    oc: int
+    stride: int
+    act: str
+
+    @property
+    def width(self):
+        """Canonical stacked branch width W = 8 * ic (max e6 width)."""
+        return self.ic * max(ss.OP_MAX_EXPAND)
+
+    @property
+    def se_width(self):
+        return self.ic * max(ss.OP_SE_MULT)
+
+    @property
+    def has_residual(self):
+        return self.ic == self.oc and self.stride == 1
+
+
+def block_sites(space=None):
+    sp = space or ss
+    sites, g = [], 0
+    for stage, spec in sp.STAGE_SPECS.items():
+        for i in range(len(spec["ics"])):
+            sites.append(BlockSite(stage, f"block{i + 1}", g, spec["ics"][i],
+                                   spec["ocs"][i], spec["ss"][i],
+                                   spec["acts"][i]))
+            g += 1
+    return sites
+
+
+def _pad_dim(t, dim, size):
+    """Zero-pad dim `dim` of t at its end up to `size`."""
+    pad = [0, 0] * t.dim()
+    pad[2 * (t.dim() - 1 - dim) + 1] = size - t.shape[dim]
+    return F.pad(t, pad)
+
+
+def _dw_tap_mask(op_idx):
+    """[KMAX, KMAX] mask of live taps for this op's kernel size."""
+    k = ss.OP_KERNEL[op_idx]
+    m = np.zeros((KMAX, KMAX), np.float32)
+    off = (KMAX - k) // 2
+    m[off:off + k, off:off + k] = 1.0
+    return m
+
+
+def _take(t, idx):
+    """t[idx] along dim 0 for a 0-dim integer tensor, without a host sync."""
+    return t.index_select(0, idx.reshape(1)).squeeze(0)
+
+
+class SuperNetwork:
+    """Supernet over the TF-NAS space (or a make_space namespace)."""
+
+    def __init__(self, num_classes, space=None):
+        self.ss = space or ss
+        self.num_classes = num_classes
+        self.first_stem = ConvLayer(affine=False, **self.ss.STEM_CONV)
+        self.second_stem = MBInvertedResBlock(affine=False,
+                                              **self.ss.SECOND_STEM)
+        self.sites = block_sites(self.ss)
+        self.feature_mix_layer = ConvLayer(affine=False, **self.ss.HEAD_CONV)
+        self.classifier = LinearLayer(self.ss.HEAD_FEATURES, num_classes)
+        self._se_on = {}  # device -> bool [8] tensor
+
+    # -- init --------------------------------------------------------------
+
+    def _init_block(self, site, generator):
+        """Init the 8 candidates at their true shapes (torch fan-ins), then
+        pad and stack them to the canonical shape."""
+        W, SE = site.width, site.se_width
+        ic, oc = site.ic, site.oc
+        expand, depth, red_k, red_b, exp_k, exp_b, proj = \
+            [], [], [], [], [], [], []
+        for o in range(ss.NUM_OPS):
+            k = ss.OP_KERNEL[o]
+            w_o = ic * ss.OP_MAX_EXPAND[o]
+            se_o = ic * ss.OP_SE_MULT[o]
+            expand.append(_pad_dim(init_conv_kernel(1, 1, ic, w_o, generator),
+                                   0, W))
+            off = (KMAX - k) // 2
+            dk = F.pad(init_conv_kernel(k, k, 1, w_o, generator),
+                       (off, off, off, off))
+            depth.append(_pad_dim(dk, 0, W))
+            if se_o > 0:
+                red_k.append(_pad_dim(_pad_dim(torch_uniform_init(
+                    (w_o, se_o), w_o, generator), 0, W), 1, SE))
+                red_b.append(_pad_dim(torch_uniform_init(
+                    (se_o,), w_o, generator), 0, SE))
+                exp_k.append(_pad_dim(_pad_dim(torch_uniform_init(
+                    (se_o, w_o), se_o, generator), 0, SE), 1, W))
+                exp_b.append(_pad_dim(torch_uniform_init(
+                    (w_o,), se_o, generator), 0, W))
+            else:
+                z = dict(device=generator.device)
+                red_k.append(torch.zeros((W, SE), **z))
+                red_b.append(torch.zeros((SE,), **z))
+                exp_k.append(torch.zeros((SE, W), **z))
+                exp_b.append(torch.zeros((W,), **z))
+            proj.append(_pad_dim(init_conv_kernel(1, 1, w_o, oc, generator),
+                                 1, W))
+        return {
+            "expand": {"kernel": torch.stack(expand)},    # [8,W,ic,1,1]
+            "depth": {"kernel": torch.stack(depth)},      # [8,W,1,5,5]
+            "se": {
+                "reduce_kernel": torch.stack(red_k),      # [8,W,SE]
+                "reduce_bias": torch.stack(red_b),        # [8,SE]
+                "expand_kernel": torch.stack(exp_k),      # [8,SE,W]
+                "expand_bias": torch.stack(exp_b),        # [8,W]
+            },
+            "project": {"kernel": torch.stack(proj)},     # [8,oc,W,1,1]
+        }
+
+    def init(self, generator):
+        """(params, arch_params) on the generator's device."""
+        params = {"first_stem": self.first_stem.init(generator)[0],
+                  "second_stem": self.second_stem.init(generator)[0]}
+        for site in self.sites:
+            params.setdefault(site.stage, {})[site.block] = \
+                self._init_block(site, generator)
+        params["feature_mix_layer"] = self.feature_mix_layer.init(generator)[0]
+        params["classifier"] = self.classifier.init(generator)[0]
+        dev = generator.device
+        arch_params = {
+            "log_alphas": torch.full((len(self.sites), ss.NUM_OPS),
+                                     -math.log(ss.NUM_OPS), device=dev),
+            "betas": {stage: torch.zeros(self.ss.STAGE_DEPTHS[stage],
+                                         device=dev)
+                      for stage in self.ss.STAGE_NAMES},
+        }
+        return params, arch_params
+
+    # -- shared pieces -----------------------------------------------------
+
+    def _stem(self, params, x, training):
+        x, _ = self.first_stem.apply(params["first_stem"], {}, x,
+                                     training=training)
+        x, _ = self.second_stem.apply(params["second_stem"], {}, x,
+                                      training=training)
+        return x
+
+    def _head(self, params, x, training):
+        x, _ = self.feature_mix_layer.apply(params["feature_mix_layer"], {},
+                                            x, training=training)
+        x = x.mean(dim=(2, 3))
+        x, _ = self.classifier.apply(params["classifier"], {}, x,
+                                     training=training)
+        return x
+
+    @staticmethod
+    def _conv(x, kernel, stride=1, groups=1):
+        return F.conv2d(x, kernel.to(x.dtype), None, stride,
+                        kernel.shape[-1] // 2, 1, groups)
+
+    def _se_on_tensor(self, device):
+        if device not in self._se_on:
+            self._se_on[device] = torch.tensor(
+                [m > 0 for m in ss.OP_SE_MULT], device=device)
+        return self._se_on[device]
+
+    def _dw_middle(self, h_raw, dwk, mask, act, stride):
+        """mask -> BN -> act -> depthwise -> BN -> act over the raw expand
+        output h_raw [N, C, H, W]; dwk: [C, 1, 5, 5]; mask: [C].
+
+        The first BN's statistics are taken here; normalise + act, the 5x5
+        depthwise and the second BN's statistics are one fused_dw_norm_act
+        call. Search BN is batch-stat-only and affine-free."""
+        sd = stat_dtype(h_raw.dtype)
+        n1 = h_raw.shape[0] * h_raw.shape[2] * h_raw.shape[3]
+        hm = h_raw.to(sd) * mask.to(sd)[None, :, None, None]
+        s1 = hm.sum(dim=(0, 2, 3))
+        q1 = (hm * hm).sum(dim=(0, 2, 3))
+        mean1 = s1 / n1
+        var1 = q1 / n1 - mean1 * mean1
+        scale1, offset1 = fold_bn_mask(mean1, var1, mask, BN_EPS)
+
+        x_nhwc = h_raw.permute(0, 2, 3, 1).contiguous()
+        h2, s2, q2 = fused_dw_norm_act(x_nhwc, dwk[:, 0].permute(1, 2, 0),
+                                       scale1, offset1, stride, act)
+        n2 = h2.shape[0] * h2.shape[1] * h2.shape[2]
+        mean2 = s2 / n2
+        var2 = q2 / n2 - mean2 * mean2
+        scale2, offset2 = fold_bn_mask(mean2, var2, mask, BN_EPS)
+        h2 = h2.permute(0, 3, 1, 2)
+        return apply_act((h2.to(sd) * scale2[None, :, None, None]
+                          + offset2[None, :, None, None]).to(h2.dtype), act)
+
+    # -- soft (all-branches) block ----------------------------------------
+
+    def _block_soft(self, site, p, pad_mask, w, x, training):
+        """All 8 branches fused; returns sum_o w_o * op_o(x).
+
+        pad_mask: [8, W] width masks; w: [8] Gumbel weights. The four e3
+        candidates run at their true width W/2, so the channel layout is
+        [e3 ops (0, 2, 4, 6) x W/2 | e6 ops (1, 3, 5, 7) x W]."""
+        n_ops, W = pad_mask.shape
+        we3, half = W // 2, n_ops // 2
+        flat_mask = torch.cat([pad_mask[::2, :we3].reshape(-1),
+                               pad_mask[1::2].reshape(-1)])
+
+        ek = p["expand"]["kernel"]                        # [8,W,ic,1,1]
+        ek = torch.cat([ek[::2, :we3].reshape(half * we3, site.ic, 1, 1),
+                        ek[1::2].reshape(half * W, site.ic, 1, 1)])
+        h = self._conv(x, ek)
+
+        dk = p["depth"]["kernel"]                         # [8,W,1,5,5]
+        dk = torch.cat([dk[::2, :we3].reshape(half * we3, 1, KMAX, KMAX),
+                        dk[1::2].reshape(half * W, 1, KMAX, KMAX)])
+        h = self._dw_middle(h, dk, flat_mask, site.act, site.stride)
+
+        se = p["se"]
+        se_on = self._se_on_tensor(h.device)
+        n = h.shape[0]
+        h3, h6 = h[:, :half * we3], h[:, half * we3:]
+
+        def se_gate(hs, width, rk, rb, xk, xb, on):
+            pooled = hs.mean(dim=(2, 3)).reshape(n, half, width)
+            z = torch.einsum("now,ows->nos", pooled, rk.to(pooled.dtype))
+            z = apply_act(z + rb.to(pooled.dtype), site.act)
+            g = torch.einsum("nos,osw->now", z, xk.to(pooled.dtype))
+            g = g + xb.to(pooled.dtype)
+            gate = torch.where(on[None, :, None],
+                               torch.sigmoid(g.to(stat_dtype(g.dtype))), 1.0)
+            return gate.reshape(n, half * width, 1, 1).to(hs.dtype)
+
+        h3 = h3 * se_gate(h3, we3, se["reduce_kernel"][::2, :we3],
+                          se["reduce_bias"][::2],
+                          se["expand_kernel"][::2, :, :we3],
+                          se["expand_bias"][::2, :we3], se_on[::2])
+        h6 = h6 * se_gate(h6, W, se["reduce_kernel"][1::2],
+                          se["reduce_bias"][1::2], se["expand_kernel"][1::2],
+                          se["expand_bias"][1::2], se_on[1::2])
+
+        # per-branch 1x1 project as one batched product over the op axis
+        pk = p["project"]["kernel"]                       # [8,oc,W,1,1]
+        nb, hh, ww = h.shape[0], h.shape[2], h.shape[3]
+        y3 = torch.einsum("nhwgc,goc->nhwgo",
+                          h3.permute(0, 2, 3, 1).reshape(nb, hh, ww, half,
+                                                         we3),
+                          pk[::2, :, :we3, 0, 0].to(h.dtype))
+        y6 = torch.einsum("nhwgc,goc->nhwgo",
+                          h6.permute(0, 2, 3, 1).reshape(nb, hh, ww, half, W),
+                          pk[1::2, :, :, 0, 0].to(h.dtype))
+        y = torch.cat([y3, y6], dim=3).reshape(nb, hh, ww, n_ops * site.oc)
+        y, _ = batch_norm(y.permute(0, 3, 1, 2), {}, {}, affine=False,
+                          training=training)
+
+        # weighted cross-branch sum after the per-branch project BN
+        w_perm = torch.cat([w[::2], w[1::2]])
+        y = torch.einsum("nochw,o->nchw",
+                         y.reshape(nb, n_ops, site.oc, hh, ww),
+                         w_perm.to(y.dtype))
+        if site.has_residual:
+            y = y + x  # sum_o w_o (out_o + res) == sum_o w_o out_o + res
+        return y
+
+    # -- hard (sampled) block ---------------------------------------------
+
+    def _block_sampled(self, site, p, pad_mask, op_idx, x, training):
+        """One branch, its weights gathered from the stacked arrays by the
+        0-dim integer tensor op_idx."""
+        mask = _take(pad_mask, op_idx)
+        h = self._conv(x, _take(p["expand"]["kernel"], op_idx))
+        h = self._dw_middle(h, _take(p["depth"]["kernel"], op_idx), mask,
+                            site.act, site.stride)
+
+        se = p["se"]
+        pooled = h.mean(dim=(2, 3))                         # [N, W]
+        rk = _take(se["reduce_kernel"], op_idx)
+        rb = _take(se["reduce_bias"], op_idx)
+        xk = _take(se["expand_kernel"], op_idx)
+        xb = _take(se["expand_bias"], op_idx)
+        z = apply_act(pooled @ rk.to(h.dtype) + rb.to(h.dtype), site.act)
+        g = z @ xk.to(h.dtype) + xb.to(h.dtype)
+        has_se = _take(self._se_on_tensor(h.device), op_idx)
+        gate = torch.where(has_se, torch.sigmoid(g.to(stat_dtype(g.dtype))),
+                           1.0)
+        h = h * gate[:, :, None, None].to(h.dtype)
+
+        y = self._conv(h, _take(p["project"]["kernel"], op_idx))
+        y, _ = batch_norm(y, {}, {}, affine=False, training=training)
+        if site.has_residual:
+            y = y + x
+        return y
+
+    # -- public forwards ---------------------------------------------------
+
+    def _trunk(self, params, arch_params, x, block_fn):
+        """Stages of blocks with softmax(betas) sink mixing; block_fn(site,
+        p, h) runs one block. Returns the last stage's mixed output."""
+        si = 0
+        for stage in self.ss.STAGE_NAMES:
+            depth = self.ss.STAGE_DEPTHS[stage]
+            res_list, h = [], x
+            for d in range(depth):
+                site = self.sites[si + d]
+                h = block_fn(site, params[site.stage][site.block], h)
+                res_list.append(h)
+            w = torch.softmax(arch_params["betas"][stage], dim=0)
+            x = sum(w[d].to(r.dtype) * r for d, r in enumerate(res_list))
+            si += depth
+        return x
+
+    def apply_sampled(self, params, arch_params, masks, x, op_indices, *,
+                      training=True):
+        """Hard-sampled forward. x: [N, H, W, C]; op_indices: integer [18]
+        tensor. Returns logits."""
+        h = self._stem(params, x.permute(0, 3, 1, 2), training)
+        return self._head(params, self._sampled_trunk(
+            params, arch_params, masks, h, op_indices, training), training)
+
+    def _sampled_trunk(self, params, arch_params, masks, h, op_indices,
+                       training):
+        def block(site, p, h):
+            return self._block_sampled(site, p, masks[site.stage][site.block],
+                                       op_indices[site.global_idx], h,
+                                       training)
+        return self._trunk(params, arch_params, h, block)
+
+    def apply_sampled_pair(self, params, arch_params, masks, x, idx_a,
+                           idx_b, *, training=True):
+        """The bi-sampling pair of hard forwards with the stem computed
+        once (both trunks see the same batch through the same stem, so
+        sharing it is exact). Returns (logits_a, logits_b)."""
+        s = self._stem(params, x.permute(0, 3, 1, 2), training)
+        return tuple(
+            self._head(params, self._sampled_trunk(
+                params, arch_params, masks, s, idx, training), training)
+            for idx in (idx_a, idx_b))
+
+    def apply_soft(self, params, arch_params, masks, x, gumbel_weights,
+                   lat_vec, *, training=True):
+        """Soft forward: all 8 fused branches weighted by gumbel_weights
+        [18, 8], plus the differentiable latency (excluding 'base') from
+        lat_vec [18, 8]. Returns (logits, latency)."""
+        x = self._stem(params, x.permute(0, 3, 1, 2), training)
+        total_lat = torch.zeros((), device=x.device)
+        si = 0
+        for stage in self.ss.STAGE_NAMES:
+            depth = self.ss.STAGE_DEPTHS[stage]
+            res_list, lat_list = [], []
+            h = x
+            cum_lat = torch.zeros((), device=x.device)
+            for d in range(depth):
+                site = self.sites[si + d]
+                wv = gumbel_weights[site.global_idx]
+                h = self._block_soft(site, params[site.stage][site.block],
+                                     masks[site.stage][site.block], wv, h,
+                                     training)
+                cum_lat = cum_lat + torch.dot(wv, lat_vec[site.global_idx])
+                res_list.append(h)
+                lat_list.append(cum_lat)
+            w = torch.softmax(arch_params["betas"][stage], dim=0)
+            x = sum(w[d].to(r.dtype) * r for d, r in enumerate(res_list))
+            total_lat = total_lat + sum(w[d] * l
+                                        for d, l in enumerate(lat_list))
+            si += depth
+        return self._head(params, x, training), total_lat
+
+    # -- masks -------------------------------------------------------------
+
+    def host_stacked_masks(self, mc_mask_dddict):
+        """Stacked padded [8, W] numpy mask arrays per block."""
+        out = {}
+        for site in self.sites:
+            stacked = np.zeros((ss.NUM_OPS, site.width), np.float32)
+            for o in range(ss.NUM_OPS):
+                m = np.asarray(mc_mask_dddict[site.stage][site.block][o],
+                               np.float32)
+                stacked[o, :m.shape[0]] = m
+            out.setdefault(site.stage, {})[site.block] = stacked
+        return out
+
+    def device_masks(self, mc_mask_dddict, device):
+        """Mask registry (true per-op widths) -> {stage: {block: [8, W]}}
+        tensors on `device`, as the apply_* paths take them."""
+        return {stage: {b: torch.from_numpy(m).to(device)
+                        for b, m in blocks.items()}
+                for stage, blocks in
+                self.host_stacked_masks(mc_mask_dddict).items()}
+
+    def update_masks(self, params, mc_mask_dddict):
+        """Tree shaped like `params` whose leaves multiply the optimizer's
+        update: 0 for masked-out and padded entries of the stacked block
+        parameters, so they stay exactly frozen; None where every entry
+        updates."""
+        host = self.host_stacked_masks(mc_mask_dddict)
+        taps = torch.from_numpy(np.stack(
+            [_dw_tap_mask(o) for o in range(ss.NUM_OPS)]))
+        out = {}
+        for name, sub in params.items():
+            if not name.startswith("stage"):
+                out[name] = _none_tree(sub)
+                continue
+            out[name] = {}
+            for block in sub:
+                site = next(s for s in self.sites
+                            if (s.stage, s.block) == (name, block))
+                dev = sub[block]["depth"]["kernel"].device
+                cm = torch.from_numpy(host[name][block])          # [8, W]
+                se_mask = np.zeros((ss.NUM_OPS, site.se_width), np.float32)
+                for o in range(ss.NUM_OPS):
+                    se_mask[o, :site.ic * ss.OP_SE_MULT[o]] = 1.0
+                sm = torch.from_numpy(se_mask)
+                tree = {
+                    "expand": {"kernel": cm[:, :, None, None, None]},
+                    "depth": {"kernel": (cm[:, :, None, None, None]
+                                         * taps[:, None, None, :, :])},
+                    "se": {
+                        "reduce_kernel": cm[:, :, None] * sm[:, None, :],
+                        "reduce_bias": sm,
+                        "expand_kernel": sm[:, :, None] * cm[:, None, :],
+                        "expand_bias": cm,
+                    },
+                    "project": {"kernel": cm[:, None, :, None, None]},
+                }
+                out[name][block] = {k: {kk: v.to(dev) for kk, v in d.items()}
+                                    for k, d in tree.items()}
+        return out
+
+
+def _none_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _none_tree(v) for k, v in tree.items()}
+    return None

@@ -1,0 +1,229 @@
+"""The layers the supernet's stems and head use
+(counterpart of tfnas_tpu/ops/layers.py).
+
+Each layer is a frozen dataclass describing shapes and flags, with
+`init(generator) -> (params, state)` and
+`apply(params, state, x, training=...) -> (y, new_state)` over plain
+dictionaries of tensors, so the parameter trees match the JAX package's key
+for key. Activations are NCHW.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from .activations import apply_act
+from .batchnorm import batch_norm, init_bn
+from .conv import (conv2d, global_avg_pool, init_conv_kernel, init_linear,
+                   linear, torch_uniform_init)
+
+
+def _ops_list(ops_order):
+    return ops_order.split("_")
+
+
+def _bn_before_weight(ops_order):
+    for op in _ops_list(ops_order):
+        if op == "bn":
+            return True
+        if op == "weight":
+            return False
+    raise ValueError(f"Invalid ops_order: {ops_order}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvLayer:
+    """Conv2d + optional BN + act in a configurable order."""
+
+    in_channels: int
+    out_channels: int
+    kernel_size: int = 3
+    stride: int = 1
+    groups: int = 1
+    bias: bool = False
+    use_bn: bool = True
+    affine: bool = True
+    act_func: Optional[str] = "relu6"
+    ops_order: str = "weight_bn_act"
+
+    def init(self, generator):
+        k = self.kernel_size
+        conv = {"kernel": init_conv_kernel(k, k,
+                                           self.in_channels // self.groups,
+                                           self.out_channels, generator)}
+        if self.bias:
+            conv["bias"] = torch.zeros(self.out_channels,
+                                       device=generator.device)
+        params, state = {"conv": conv}, {}
+        if self.use_bn:
+            c = (self.in_channels if _bn_before_weight(self.ops_order)
+                 else self.out_channels)
+            params["bn"], state["bn"] = init_bn(c, self.affine,
+                                                generator.device)
+        return params, state
+
+    def apply(self, params, state, x, *, training=False):
+        new_state = dict(state)
+        for op in _ops_list(self.ops_order):
+            if op == "weight":
+                x = conv2d(x, params["conv"]["kernel"], stride=self.stride,
+                           groups=self.groups,
+                           bias=params["conv"].get("bias"))
+            elif op == "bn":
+                if self.use_bn:
+                    x, new_state["bn"] = batch_norm(
+                        x, params.get("bn", {}), state.get("bn", {}),
+                        affine=self.affine, training=training)
+            elif op == "act":
+                x = apply_act(x, self.act_func)
+            else:
+                raise ValueError(f"Unrecognized op: {op}")
+        return x, new_state
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearLayer:
+    """FC + optional BN1d + act: the classifier head."""
+
+    in_features: int
+    out_features: int
+    bias: bool = True
+    use_bn: bool = False
+    affine: bool = False
+    act_func: Optional[str] = None
+    ops_order: str = "weight_bn_act"
+
+    def init(self, generator):
+        params = {"linear": init_linear(self.in_features, self.out_features,
+                                        generator, bias=self.bias)}
+        state = {}
+        if self.use_bn:
+            c = (self.in_features if _bn_before_weight(self.ops_order)
+                 else self.out_features)
+            params["bn"], state["bn"] = init_bn(c, self.affine,
+                                                generator.device)
+        return params, state
+
+    def apply(self, params, state, x, *, training=False):
+        new_state = dict(state)
+        for op in _ops_list(self.ops_order):
+            if op == "weight":
+                x = linear(x, params["linear"])
+            elif op == "bn":
+                if self.use_bn:
+                    x, new_state["bn"] = batch_norm(
+                        x, params.get("bn", {}), state.get("bn", {}),
+                        affine=self.affine, training=training)
+            elif op == "act":
+                x = apply_act(x, self.act_func)
+            else:
+                raise ValueError(f"Unrecognized op: {op}")
+        return x, new_state
+
+
+@dataclasses.dataclass(frozen=True)
+class MBInvertedResBlock:
+    """MobileNet inverted residual block with optional SE.
+
+    1x1 expand conv (+BN+act) -> kxk depthwise (+BN+act) -> optional SE
+    gate -> 1x1 project conv (+BN) -> residual add iff ic == oc and
+    stride == 1. The expand conv is omitted, and mid_channels snaps to
+    in_channels, when mid_channels <= in_channels.
+    """
+
+    in_channels: int
+    mid_channels: int
+    se_channels: int
+    out_channels: int
+    kernel_size: int = 3
+    stride: int = 1
+    use_bn: bool = True
+    affine: bool = True
+    act_func: Optional[str] = "relu6"
+
+    def __post_init__(self):
+        if self.mid_channels <= self.in_channels:
+            object.__setattr__(self, "mid_channels", self.in_channels)
+        if self.se_channels <= 0:
+            object.__setattr__(self, "se_channels", 0)
+
+    @property
+    def has_expand(self):
+        return self.mid_channels > self.in_channels
+
+    @property
+    def has_se(self):
+        return self.se_channels > 0
+
+    @property
+    def has_residual(self):
+        return self.in_channels == self.out_channels and self.stride == 1
+
+    def _conv_bn(self, kernel, generator):
+        sub_p, sub_s = {"conv": {"kernel": kernel}}, {}
+        if self.use_bn:
+            sub_p["bn"], sub_s["bn"] = init_bn(kernel.shape[0], self.affine,
+                                               generator.device)
+        return sub_p, sub_s
+
+    def init(self, generator):
+        params, state = {}, {}
+        mc, k = self.mid_channels, self.kernel_size
+        if self.has_expand:
+            params["inverted_bottleneck"], state["inverted_bottleneck"] = \
+                self._conv_bn(init_conv_kernel(1, 1, self.in_channels, mc,
+                                               generator), generator)
+        params["depth_conv"], state["depth_conv"] = self._conv_bn(
+            init_conv_kernel(k, k, 1, mc, generator), generator)
+        if self.has_se:
+            sec = self.se_channels
+            params["squeeze_excite"] = {
+                "conv_reduce": {
+                    "kernel": torch_uniform_init((mc, sec), mc, generator),
+                    "bias": torch_uniform_init((sec,), mc, generator),
+                },
+                "conv_expand": {
+                    "kernel": torch_uniform_init((sec, mc), sec, generator),
+                    "bias": torch_uniform_init((mc,), sec, generator),
+                },
+            }
+        params["point_linear"], state["point_linear"] = self._conv_bn(
+            init_conv_kernel(1, 1, mc, self.out_channels, generator),
+            generator)
+        return params, state
+
+    def _bn(self, x, params, state, new_state, name, training):
+        if not self.use_bn:
+            return x
+        x, new_state.setdefault(name, {})["bn"] = batch_norm(
+            x, params[name].get("bn", {}), state.get(name, {}).get("bn", {}),
+            affine=self.affine, training=training)
+        return x
+
+    def apply(self, params, state, x, *, training=False):
+        new_state = {k: dict(v) for k, v in state.items()}
+        res = x
+        if self.has_expand:
+            x = conv2d(x, params["inverted_bottleneck"]["conv"]["kernel"])
+            x = self._bn(x, params, state, new_state, "inverted_bottleneck",
+                         training)
+            x = apply_act(x, self.act_func)
+        x = conv2d(x, params["depth_conv"]["conv"]["kernel"],
+                   stride=self.stride, groups=self.mid_channels)
+        x = self._bn(x, params, state, new_state, "depth_conv", training)
+        x = apply_act(x, self.act_func)
+        if self.has_se:
+            se = params["squeeze_excite"]
+            z = apply_act(linear(global_avg_pool(x), se["conv_reduce"]),
+                          self.act_func)
+            z = linear(z, se["conv_expand"])
+            gate = torch.sigmoid(z.float()).to(x.dtype)
+            x = x * gate[:, :, None, None]
+        x = conv2d(x, params["point_linear"]["conv"]["kernel"])
+        x = self._bn(x, params, state, new_state, "point_linear", training)
+        if self.has_residual:
+            x = x + res
+        return x, new_state
