@@ -9,16 +9,29 @@ Phases, each printing one JSON line as soon as it ends:
    versions, and the nvcc build of the kernel library (sm_90a).
 2. kernel: the hand-written fused depthwise kernel against its plain
    PyTorch version at every (H, C, stride, act) of the search's soft and
-   sampled sites at batch 32, in f32 and bf16 (TF32 off): y, the two
-   per-channel sums and the four input gradients. Then times at bf16: the
-   kernel, the plain version, one depthwise F.conv2d as a library yardstick,
-   and the least time the card could take (bytes over 3.35 TB/s).
+   sampled sites at batch 32, and at ragged edge shapes (N 1 and 3, H and
+   W 1 to 57, C not a multiple of the copy width) at both strides and
+   both activations, in f32 and bf16 (TF32 off): y, the two per-channel
+   sums and the four input gradients, and bit-identical sums over two
+   runs. Then times at bf16, each site: `ms` (CUDA events around 20
+   back-to-back Python calls: device and host time, whichever is longer),
+   `device_ms` (events around the replay of a CUDA graph of the 20 calls:
+   device time alone), `cold_ms` (events around each of 10 calls, a
+   128 MB buffer written before each: cold L2) and `host_us` (host clock
+   per call, enqueue only), for the kernel and for one depthwise F.conv2d
+   as a library yardstick (`library_*`); the plain version's `plain_ms`;
+   and the least time the card could take (`bound_ms`).
 3. search: the full-width MBConv supernet (batch 32, 224^2, 100 classes,
    bf16 activations, latency_pkl/latency_tpu.pkl) on synthetic data made on
    the card: 2 warmup, 2 bi-sampling weight and 2 arch steps, one
    parse + shrink/expand + mask rewrite, one val step. It checks finite
    losses, frozen masked channels, and exactly 18 kernel launches per
    sampled or soft forward. It writes only into a temporary directory.
+4. profile: torch.profiler over one more steady weight step and one arch
+   step: for each, the device busy share of the step's window, the fused
+   kernel's device time and share, the 10 device kernels with the most
+   time, and the kernels launched next to the fused one (a copy or
+   transpose there would mean the NHWC hand-over is not free).
 
 The line before the last holds the kernels' summary; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -26,6 +39,7 @@ does a run without a card, a run without the package beside this file, and
 a run past the 10-minute deadline.
 """
 
+import collections
 import json
 import math
 import os
@@ -41,6 +55,11 @@ BATCH = 32
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 TARGET_LAT = 0.25           # ms, inside latency_tpu.pkl's range
+FLUSH_BYTES = 128 << 20     # written between launches for the cold-L2 time
+# ragged shapes the main path does not reach: (N, H, W, C); C 30 and 194
+# take the channel-pair copies in both dtypes, 200 the 16-byte ones
+EDGE_SHAPES = ((1, 1, 1, 30), (3, 7, 13, 194), (1, 13, 57, 200),
+               (3, 57, 7, 30), (1, 57, 57, 194))
 
 
 def emit(obj):
@@ -87,16 +106,18 @@ def main_path_sites(tss):
     return out
 
 
-def _inputs(torch, gen, h, c, dtype):
+def _inputs(torch, gen, h, c, dtype, n=BATCH, w=None):
     dev = gen.device
-    x = torch.randn((BATCH, h, h, c), generator=gen, device=dev).to(dtype)
-    w = torch.randn((5, 5, c), generator=gen, device=dev) * 0.2
+    x = torch.randn((n, h, w or h, c), generator=gen, device=dev).to(dtype)
+    wk = torch.randn((5, 5, c), generator=gen, device=dev) * 0.2
     scale = torch.rand(c, generator=gen, device=dev) + 0.5
     offset = torch.randn(c, generator=gen, device=dev) * 0.1
-    return x, w, scale, offset
+    return x, wk, scale, offset
 
 
 def _timed(torch, fn, reps=20):
+    """ms per call from CUDA events around `reps` back-to-back calls: the
+    device time, or the host's where enqueueing a call takes longer."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -107,6 +128,51 @@ def _timed(torch, fn, reps=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _timings(torch, fn, flush, reps=20):
+    """The same `reps` calls timed three more ways: device ms per call from
+    events around the replay of a CUDA graph of them (median of 5 replays),
+    cold-L2 ms per call from events around each call after `flush` is
+    written, and host us per call (enqueue only, nothing in the queue)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    dev = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        dev.append(start.elapsed_time(end) / reps)
+    del graph
+    cold = []
+    for _ in range(10):
+        flush.add_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        cold.append((start, end))
+    torch.cuda.synchronize()
+    cold_ms = sum(a.elapsed_time(b) for a, b in cold) / len(cold)
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_us = 1e6 * (time.perf_counter() - t) / reps
+    torch.cuda.synchronize()
+    return sorted(dev)[len(dev) // 2], cold_ms, host_us
 
 
 def _bound(x, w, stride):
@@ -123,58 +189,70 @@ def _bound(x, w, stride):
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 
+def _check(torch, fused_dw, gen, n, h, w, c, stride, act, dtype):
+    """The kernel (forward, backward) against the plain version on one
+    shape, and its sums over two runs; returns the case's JSON record."""
+    bf = dtype == torch.bfloat16
+    x, wk, scale, offset = _inputs(torch, gen, h, c, dtype, n, w)
+    args = [t.clone().requires_grad_() for t in (x, wk, scale, offset)]
+    got = fused_dw.fused_dw_norm_act(*args, stride, act)
+    ref_args = [t.clone().requires_grad_() for t in (x, wk, scale, offset)]
+    want = fused_dw.fused_dw_plain(*ref_args, stride, act)
+    # one loss through both: random weights on y and on the sums
+    ry = torch.randn(want[0].shape, generator=gen, device="cuda")
+    rs = torch.randn(c, generator=gen, device="cuda")
+    rq = torch.randn(c, generator=gen, device="cuda") * 1e-3
+    for (y, s, q), a in ((got, args), (want, ref_args)):
+        ((y.float() * ry).sum() + (s * rs).sum() + (q * rq).sum()).backward()
+    yf = want[0].float()
+    err_y = (got[0].float() - yf).abs().max().item()
+    tol_y = (2e-2 if bf else 2e-4) * max(1.0, yf.abs().max().item())
+    # sums: the kernel sums its f32 accumulator, the plain version the
+    # rounded y (bf16: up to 2^-8 of sum |y| apart)
+    rel = 2 ** -7 if bf else 1e-5
+    err_s = ((got[1] - want[1]).abs()
+             / (rel * yf.abs().sum((0, 1, 2)) + 1e-3)).max().item()
+    err_q = ((got[2] - want[2]).abs()
+             / (rel * (yf * yf).sum((0, 1, 2)) + 1e-3)).max().item()
+    grad_errs = [((a.grad - b.grad).abs().max()
+                  / b.grad.abs().max().clamp_min(1e-12)).item()
+                 for a, b in zip(args, ref_args)]
+    tol_g = 2e-2 if bf else 1e-3
+    with torch.no_grad():
+        again = fused_dw.fused_dw_cuda(x, wk, scale, offset, stride, act)
+    same = all(torch.equal(a, b.detach()) for a, b in zip(again, got))
+    ok = (err_y <= tol_y and err_s <= 1.0 and err_q <= 1.0
+          and max(grad_errs) <= tol_g and same
+          and all(math.isfinite(e) for e in grad_errs))
+    return {"phase": "kernel", "n": n, "h": h, "w": w or h, "c": c,
+            "stride": stride, "act": act, "dtype": "bf16" if bf else "f32",
+            "max_abs_err_y": err_y, "tol_y": tol_y,
+            "sum_err_over_tol": err_s, "sumsq_err_over_tol": err_q,
+            "grad_rel_errs_x_w_scale_offset": grad_errs, "tol_grad": tol_g,
+            "bit_identical_rerun": same, "ok": ok}
+
+
 def phase_kernel(torch, fused_dw, tss):
     F = torch.nn.functional
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     failures, per_stride = [], {1: [], 2: []}
-    for h, c, stride, act, path in main_path_sites(tss):
+    cases = [(BATCH, h, None, c, stride, act, path)
+             for h, c, stride, act, path in main_path_sites(tss)]
+    cases += [(n, h, w, c, stride, act, "edge")
+              for n, h, w, c in EDGE_SHAPES for stride in (1, 2)
+              for act in ("relu", "swish")]
+    for n, h, w, c, stride, act, path in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            bf = dtype == torch.bfloat16
-            x, w, scale, offset = _inputs(torch, gen, h, c, dtype)
-            args = [t.clone().requires_grad_() for t in (x, w, scale, offset)]
-            got = fused_dw.fused_dw_norm_act(*args, stride, act)
-            ref_args = [t.clone().requires_grad_()
-                        for t in (x, w, scale, offset)]
-            want = fused_dw.fused_dw_plain(*ref_args, stride, act)
-            # one loss through both: random weights on y and on the sums
-            ry = torch.randn(want[0].shape, generator=gen, device="cuda")
-            rs = torch.randn(c, generator=gen, device="cuda")
-            rq = torch.randn(c, generator=gen, device="cuda") * 1e-3
-            for (y, s, q), a in ((got, args), (want, ref_args)):
-                ((y.float() * ry).sum() + (s * rs).sum()
-                 + (q * rq).sum()).backward()
-            yf = want[0].float()
-            err_y = (got[0].float() - yf).abs().max().item()
-            tol_y = (2e-2 if bf else 2e-4) * max(1.0, yf.abs().max().item())
-            # sums: the kernel sums its f32 accumulator, the plain version
-            # the rounded y (bf16: up to 2^-8 of sum |y| apart)
-            rel = 2 ** -7 if bf else 1e-5
-            err_s = ((got[1] - want[1]).abs()
-                     / (rel * yf.abs().sum((0, 1, 2)) + 1e-3)).max().item()
-            err_q = ((got[2] - want[2]).abs()
-                     / (rel * (yf * yf).sum((0, 1, 2)) + 1e-3)).max().item()
-            grad_errs = [((a.grad - b.grad).abs().max()
-                          / b.grad.abs().max().clamp_min(1e-12)).item()
-                         for a, b in zip(args, ref_args)]
-            tol_g = 2e-2 if bf else 1e-3
-            ok = (err_y <= tol_y and err_s <= 1.0 and err_q <= 1.0
-                  and max(grad_errs) <= tol_g
-                  and all(math.isfinite(e) for e in grad_errs))
-            case = {"phase": "kernel", "h": h, "c": c, "stride": stride,
-                    "act": act, "path": path,
-                    "dtype": "bf16" if bf else "f32",
-                    "max_abs_err_y": err_y, "tol_y": tol_y,
-                    "sum_err_over_tol": err_s, "sumsq_err_over_tol": err_q,
-                    "grad_rel_errs_x_w_scale_offset": grad_errs,
-                    "tol_grad": tol_g, "ok": ok}
+            case = _check(torch, fused_dw, gen, n, h, w, c, stride, act,
+                          dtype)
+            case["path"] = path
             emit(case)
-            if not ok:
+            if not case["ok"]:
                 failures.append(case)
-            if bf:
-                per_stride[stride].append((h, c, err_y))
-            del args, ref_args, got, want, ry
+            if dtype == torch.bfloat16 and path != "edge":
+                per_stride[stride].append((h, c, case["max_abs_err_y"]))
     torch.backends.cudnn.allow_tf32 = True
     if failures:
         raise AssertionError(f"kernel disagrees with its plain version in "
@@ -182,25 +260,37 @@ def phase_kernel(torch, fused_dw, tss):
 
     # times at bf16, the search's activation dtype
     times = {}
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
     for h, c, stride, act, path in main_path_sites(tss):
         x, w, scale, offset = _inputs(torch, gen, h, c, torch.bfloat16)
         x1 = fused_dw._elementwise(x, scale, offset, act).permute(0, 3, 1, 2)
         wk = fused_dw._dw_weight(w, x.dtype)
+
+        def kernel():
+            return fused_dw.fused_dw_cuda(x, w, scale, offset, stride, act)
+
+        def library():
+            return F.conv2d(x1, wk, None, stride, 2, 1, c)
+
         with torch.no_grad():
-            t_k = _timed(torch, lambda: fused_dw.fused_dw_cuda(
-                x, w, scale, offset, stride, act))
+            t_k = _timed(torch, kernel)
+            dev_k, cold_k, host_k = _timings(torch, kernel, flush)
             t_p = _timed(torch, lambda: fused_dw.fused_dw_plain(
                 x, w, scale, offset, stride, act))
-            t_l = _timed(torch, lambda: F.conv2d(x1, wk, None, stride, 2, 1,
-                                                 c))
+            t_l = _timed(torch, library)
+            dev_l, cold_l, host_l = _timings(torch, library, flush)
         bound_ms, bound_by = _bound(x, w, stride)
         row = {"phase": "kernel_time", "h": h, "c": c, "stride": stride,
                "act": act, "path": path, "dtype": "bf16", "ms": t_k,
-               "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound_ms,
+               "device_ms": dev_k, "cold_ms": cold_k, "host_us": host_k,
+               "plain_ms": t_p, "library_ms": t_l,
+               "library_device_ms": dev_l, "library_cold_ms": cold_l,
+               "library_host_us": host_l, "bound_ms": bound_ms,
                "bound_by": bound_by}
         emit(row)
         times[(h, c, stride)] = row
         del x, x1
+    del flush
     return per_stride, times
 
 
@@ -240,7 +330,7 @@ def phase_search(torch, fused_dw, tmpdir):
         lut, get_mc_num_dddict(mc_mask))).to(dev)
     steps = make_search_steps(net, num_classes=100, lambda_lat=0.1,
                               target_lat=TARGET_LAT)
-    data = device_batches(BATCH, 7, gen, 100, 224, torch.bfloat16)
+    data = device_batches(BATCH, 8, gen, 100, 224, torch.bfloat16)
     torch.cuda.synchronize()
     emit({"phase": "search_setup", "init_s": time.perf_counter() - t0,
           "params_M": sum(p.numel() for p in tree_leaves(params)) / 1e6})
@@ -338,7 +428,91 @@ def phase_search(torch, fused_dw, tmpdir):
     x, y = next(data)
     idx = sample_gumbel_indices(arch["log_alphas"], gen)
     run("val", 18, lambda: steps.val_step(params, arch, masks, x, y, idx))
+
+    # phase 4: one more steady weight and arch step under the profiler
+    from torch.profiler import ProfilerActivity, profile, record_function
+    umasks = net.update_masks(params, mc_mask)
+    x, y = next(data)
+    ig = sample_gumbel_indices(arch["log_alphas"], gen)
+    ir = sample_random_excluding(ig, 8, gen)
+    u = gumbel_uniform(arch["log_alphas"].shape, gen)
+
+    def weight_p():
+        nonlocal params, mom
+        params, mom, m = steps.weight_step(params, arch, mom, masks, umasks,
+                                           x, y, lr, ig, ir)
+        return m
+
+    def arch_p():
+        nonlocal arch, opt_a
+        arch, opt_a, m = steps.arch_step(params, arch, opt_a, masks, x, y,
+                                         lat_vec, lut["base"], T, u)
+        return m
+
+    for name, expect, fn in (("weight", 36, weight_p), ("arch", 18, arch_p)):
+        trace = os.path.join(tmpdir, f"trace_{name}.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("step"):
+                run(f"{name}_profiled", expect, fn)
+        prof.export_chrome_trace(trace)
+        emit(_profile_summary(name, trace))
     return dict(fused_dw.launches)
+
+
+def _profile_summary(step, path):
+    """What the card did inside the profiled step's window (the host range
+    'step', which ends after a synchronize): busy share, the fused kernel's
+    time and share, the top kernels, and the fused kernel's neighbours."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    span = [e for e in events
+            if e.get("cat") == "user_annotation" and e.get("name") == "step"]
+    if not span:
+        raise AssertionError("the profiler trace has no 'step' range")
+    t0, t1 = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+    dev = sorted((e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset") and "dur" in e),
+        key=lambda e: e["ts"])
+    kernels = [e for e in dev if e["cat"] == "kernel"]
+    if not kernels:
+        raise AssertionError("the profiler recorded no kernel on the card")
+    busy, reach = 0.0, t0
+    for e in dev:  # union of the device intervals inside the window
+        a, b = max(e["ts"], reach), min(e["ts"] + e["dur"], t1)
+        if b > a:
+            busy += b - a
+        reach = max(reach, e["ts"] + e["dur"])
+    total, count = collections.Counter(), collections.Counter()
+    for e in kernels:
+        total[e["name"]] += e["dur"]
+        count[e["name"]] += 1
+    fused = [i for i, e in enumerate(kernels) if "fused_dw" in e["name"]]
+    fused_us = sum(kernels[i]["dur"] for i in fused)
+    # the kernels launched just before and after each fused launch, with
+    # their mean time beside the fused kernel's (a copy of x would take a
+    # good part of it; a copy of the [5, 5, C] taps a few us)
+    near = collections.defaultdict(list)
+    for i in fused:
+        for k in (i - 1, i + 1):
+            if 0 <= k < len(kernels) and "fused_dw" not in kernels[k]["name"]:
+                near[kernels[k]["name"][:120]].append(kernels[k]["dur"])
+    neighbours = {n: {"calls": len(d), "mean_us": sum(d) / len(d)}
+                  for n, d in sorted(near.items(), key=lambda e: -len(e[1]))}
+    moves = {n: v for n, v in neighbours.items()
+             if any(w in n.lower() for w in ("copy", "transpose", "permute"))}
+    return {"phase": "profile", "step": step,
+            "window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / (t1 - t0),
+            "kernels": len(kernels), "fused_dw_launches": len(fused),
+            "fused_dw_ms": fused_us / 1e3,
+            "fused_dw_share": fused_us / (t1 - t0),
+            "top_kernels": [{"name": n[:160], "ms": t / 1e3,
+                             "calls": count[n]}
+                            for n, t in total.most_common(10)],
+            "fused_dw_mean_us": fused_us / max(1, len(fused)),
+            "fused_dw_neighbours": neighbours,
+            "copy_or_transpose_next_to_fused": moves}
 
 
 def main():
@@ -379,8 +553,11 @@ def main():
             "replaces": replaces, "launches": launches[stride],
             "max_abs_err": max(e for _, _, e in per_stride[stride]),
             "shape": [BATCH, h, h, c], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "device_ms": row["device_ms"], "cold_ms": row["cold_ms"],
+            "host_us": row["host_us"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library_device_ms": row["library_device_ms"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

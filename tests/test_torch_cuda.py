@@ -30,21 +30,16 @@ def cuda():
         tf32
 
 
-def _inputs(seed, n, h, c, device, dtype):
+def _inputs(seed, n, h, c, device, dtype, w=None):
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn((n, h, h, c), generator=g).to(device, dtype)
-    w = (torch.randn((5, 5, c), generator=g) * 0.1).to(device)
+    x = torch.randn((n, h, w or h, c), generator=g).to(device, dtype)
+    wk = (torch.randn((5, 5, c), generator=g) * 0.1).to(device)
     scale = (torch.rand(c, generator=g) + 0.5).to(device)
     offset = (torch.randn(c, generator=g) * 0.1).to(device)
-    return x, w, scale, offset
+    return x, wk, scale, offset
 
 
-@pytest.mark.parametrize("c", [96, 768, 30])
-@pytest.mark.parametrize("act", ["relu", "swish"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("stride", [1, 2])
-def test_kernel_matches_plain(cuda, stride, dtype, act, c):
-    a = _inputs(3, 2, 14, c, cuda, dtype)
+def _check_forward(a, stride, act, dtype):
     before = dict(tfused.launches)
     got = tfused.fused_dw_cuda(*a, stride, act)
     want = tfused.fused_dw_plain(*a, stride, act)
@@ -62,6 +57,43 @@ def test_kernel_matches_plain(cuda, stride, dtype, act, c):
                         (got[2], want[2], (yf * yf).sum((0, 1, 2)))):
         rel = 1e-5 if dtype == torch.float32 else 2 ** -7
         assert torch.all((g - w).abs() <= rel * scale + 1e-4)
+    return got
+
+
+@pytest.mark.parametrize("c", [96, 768, 30])
+@pytest.mark.parametrize("act", ["relu", "swish"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_kernel_matches_plain(cuda, stride, dtype, act, c):
+    _check_forward(_inputs(3, 2, 14, c, cuda, dtype), stride, act, dtype)
+
+
+@pytest.mark.parametrize("n,h,w,c", [(1, 1, 1, 30), (3, 7, 13, 194),
+                                     (1, 13, 57, 200), (3, 57, 7, 30),
+                                     (1, 57, 57, 194)])
+@pytest.mark.parametrize("act", ["relu", "swish"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_kernel_edge_shapes(cuda, stride, dtype, act, n, h, w, c):
+    """Ragged shapes: C not a multiple of the 16-byte copy or the channel
+    group, H and W not multiples of the strip or segment, N 1 and 3. The
+    forward, the four gradients (1e-3 f32, 2e-2 bf16 of the largest entry)
+    and bit-identical sums over two runs."""
+    a = _inputs(6, n, h, c, cuda, dtype, w)
+    got = _check_forward(a, stride, act, dtype)
+    again = tfused.fused_dw_cuda(*a, stride, act)
+    for g1, g2 in zip(got, again):
+        assert torch.equal(g1, g2)
+    a1 = [t.clone().requires_grad_() for t in a]
+    a2 = [t.clone().requires_grad_() for t in a]
+    for out, args in ((tfused.fused_dw_norm_act(*a1, stride, act), a1),
+                      (tfused.fused_dw_plain(*a2, stride, act), a2)):
+        y, s, q = out
+        ((y.float() ** 2).sum() + s.sum() + 1e-3 * q.sum()).backward()
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    for t1, t2 in zip(a1, a2):
+        err = (t1.grad - t2.grad).abs().max()
+        assert err <= tol * t2.grad.abs().max().clamp_min(1e-12)
 
 
 def test_wrapper_refuses_bad_input(cuda):
@@ -77,6 +109,12 @@ def test_wrapper_refuses_bad_input(cuda):
     odd = _inputs(5, 1, 8, 33, cuda, torch.float32)
     with pytest.raises(ValueError, match="even"):
         tfused.fused_dw_cuda(*odd, 1, "relu")
+    # 16-byte copies need x on a 16-byte boundary: a view one pixel in is
+    # on one only when a pixel is a multiple of 16 bytes
+    base = torch.zeros(2 * 8 * 8 * 32 + 2, device=cuda)
+    shifted = base[2:].view(2, 8, 8, 32)
+    with pytest.raises(ValueError, match="aligned"):
+        tfused.fused_dw_cuda(shifted, w, scale, offset, 1, "relu")
 
 
 def test_supernet_on_card_matches_cpu(cuda):

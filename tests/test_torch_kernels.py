@@ -116,20 +116,45 @@ def _main_path_shapes():
     return sorted(set(out))
 
 
-@pytest.mark.parametrize("h,c,stride,act", _main_path_shapes())
-def test_tiling_covers_output(h, c, stride, act):
-    """The wrapper's tiling covers every output pixel exactly once with a
-    tile the kernel instantiates, and two blocks' shared memory fits an SM
-    in f32 (csrc/fused_dw.cu: window of channel pairs over 32 lanes, plus
-    4 KB of reduction scratch)."""
-    th, tw, tiles_h, tiles_w = tfused.tiles(h, h, stride)
-    ho = (h - 1) // stride + 1
-    assert ho == h // stride
-    assert (stride, tw) in ((1, 16), (1, 8), (2, 8)) and th == 8
-    assert tiles_h * th >= ho > (tiles_h - 1) * th
-    assert tiles_w * tw >= ho > (tiles_w - 1) * tw
-    window = ((th - 1) * stride + 5) * ((tw - 1) * stride + 5) * 32 * 8
-    assert 2 * (window + 4096 + 1024) <= 228 * 1024
+# ragged shapes the main path does not reach: (N, H, W, C, stride)
+_EDGE_SHAPES = [(1, 1, 1, 30, 1), (3, 7, 13, 194, 2), (1, 13, 57, 200, 1),
+                (3, 57, 7, 30, 2), (1, 57, 57, 194, 1), (3, 13, 13, 200, 2)]
+
+
+@pytest.mark.parametrize(
+    "n,h,w,c,stride,act",
+    [(32, h, h, c, s, a) for h, c, s, a in _main_path_shapes()]
+    + [(n, h, w, c, s, "swish") for n, h, w, c, s in _EDGE_SHAPES])
+def test_work_list_covers_output(n, h, w, c, stride, act):
+    """The kernel's work list (`plan`, `work_items`) covers every output
+    pixel of every (image, channel) exactly once, in bf16 and f32; the
+    partials have one row per block of a channel group; and the ring fits
+    the SM as often as the plan says (csrc/fused_dw.cu)."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    for itemsize in (2, 4):
+        p = tfused.plan(n, h, w, c, stride, itemsize, 132)
+        assert p.cw in (1, 2, 4, 8)
+        assert p.cb * p.cw == tfused.GROUP * tfused.WARPS
+        assert p.sw == tfused.COLS * p.cw and (p.cw == 8 or p.sw >= wo)
+        assert p.vec_bytes == (16 if c % (16 // itemsize) == 0
+                               else 2 * itemsize)
+        assert 1 <= p.bpg <= p.items
+        assert p.blocks_per_sm * (p.smem + 1024) <= 228 * 1024
+        assert p.groups * p.bpg <= max(p.groups, p.blocks_per_sm * 132)
+        cover = np.zeros((p.groups, n, ho, wo), np.int32)
+        rows = {}
+        for block, (c0, c1), img, (y0, y1), (x0, x1) in tfused.work_items(
+                p, n, h, w, stride):
+            g, j = divmod(block, p.bpg)
+            assert c0 == g * p.cb and c1 - c0 == p.cb
+            assert y1 - y0 <= p.rs and x1 - x0 <= p.sw
+            cover[g, img, y0:y1, x0:x1] += 1
+            rows.setdefault(j, set()).add(g)
+        assert (cover == 1).all()
+        # partial row j holds every group's block j: one row per block
+        assert sorted(rows) == list(range(p.bpg))
+        assert all(gs == set(range(p.groups)) for gs in rows.values())
+        assert p.groups * p.cb >= c > (p.groups - 1) * p.cb
     assert c % 2 == 0 and act in tfused._ACT_CODES
 
 

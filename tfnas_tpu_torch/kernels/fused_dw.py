@@ -12,12 +12,16 @@ at first use, loaded with ctypes); on a CPU tensor it runs `fused_dw_plain`,
 the same math in plain PyTorch. A CUDA tensor never falls back to the plain
 version: the kernel launches or the call raises. `launches[stride]` counts
 kernel launches at each stride (stride 1 replaces the TPU's `_kernel`,
-stride 2 its `_kernel_s2`).
+stride 2 its `_kernel_s2`). The kernel's static work decomposition is
+chosen here by `plan` and passed to it; `work_items` lists it in the
+kernel's order, for the CPU tests.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,7 +35,15 @@ import torch.nn.functional as F
 from ..ops.activations import apply_act
 
 KPAD = 2
-TILE_H = 8  # output rows per tile, TH in csrc/fused_dw.cu
+# the kernel's fixed geometry (csrc/fused_dw.cu)
+THREADS, WARPS = 256, 8
+COLS = 4      # output columns a thread computes
+GROUP = 64    # channels of one warp (32 lanes x a channel pair)
+DEPTH = 6     # ring slots of input rows in shared memory
+BLOCKS_PER_SM = 2  # 256 threads at up to 128 registers
+SMEM_PER_SM = 228 * 1024   # H100: shared memory of one SM
+SMEM_PER_BLOCK = 227 * 1024
+SMEM_RESERVED = 1024       # the runtime's reserve per block
 
 # activation codes understood by the kernel (`activate` in fused_dw.cu)
 _ACT_CODES = {None: 0, "relu": 1, "swish": 2, "h-swish": 3, "relu6": 4}
@@ -95,19 +107,78 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_dw_forward.argtypes = [p] * 7 + [i] * 8 + [p]
+        lib.fused_dw_forward.argtypes = [p] * 6 + [i] * 11 + [p]
         lib.fused_dw_forward.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def tiles(h, w, stride):
-    """(TH, TW, tiles_h, tiles_w) of the kernel's output tiling: 8-row
-    tiles, 16 columns wide at stride 1 where the output is that wide, else
-    8 (the kernel instantiates exactly these)."""
+Plan = collections.namedtuple(
+    "Plan", "vec_bytes cw cb sw iw rs strips segs items groups bpg "
+            "blocks_per_sm smem")
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n, h, w, c, stride, itemsize, sms):
+    """The kernel's static decomposition of one call.
+
+    A block of 8 warps owns `cb` channels and a strip of `sw` output
+    columns (`cw` column warps of COLS columns: the least power of two up
+    to 8 that covers the output width, the rest of the warps take more
+    channels). Per channel group the items are (image, segment of `rs`
+    output rows, strip), strip fastest; `bpg` blocks serve each group,
+    block j walking items j, j + bpg, ... (`work_items`). The grid is
+    `groups * bpg` blocks, at most `blocks_per_sm` on each of `sms` SMs at
+    once; `rs` and `bpg` minimise the rows the busiest block streams. The
+    copies are 16 bytes where C is a multiple of 16 bytes of channels,
+    else one channel pair (`vec_bytes`)."""
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-    tw = 16 if stride == 1 and wo >= 16 else 8
-    return TILE_H, tw, -(-ho // TILE_H), -(-wo // tw)
+    wide = 16 // itemsize
+    vec_bytes = 16 if c % wide == 0 else 2 * itemsize
+    cw = 1
+    while cw < WARPS and cw * COLS < wo:
+        cw *= 2
+    cb, sw = GROUP * (WARPS // cw), COLS * cw
+    iw = (sw - 1) * stride + 5
+    smem = DEPTH * iw * cb * itemsize + 2 * cb * 4 + THREADS * 16
+    blocks_per_sm = min(BLOCKS_PER_SM, SMEM_PER_SM // (smem + SMEM_RESERVED))
+    assert smem <= SMEM_PER_BLOCK and blocks_per_sm >= 1
+    groups, strips = -(-c // cb), -(-wo // sw)
+    slots = blocks_per_sm * sms
+    best = None
+    for segs in range(1, ho + 1):
+        rs = -(-ho // segs)
+        if -(-ho // rs) != segs:
+            continue  # the same rs as a smaller segs
+        items = n * segs * strips
+        bpg = min(items, max(1, slots // groups))
+        waves = -(-groups * bpg // slots)
+        cost = waves * -(-items // bpg) * ((rs - 1) * stride + 5)
+        if best is None or cost < best[0]:
+            best = (cost, rs, segs, items, bpg)
+    _, rs, segs, items, bpg = best
+    return Plan(vec_bytes, cw, cb, sw, iw, rs, strips, segs, items, groups,
+                bpg, blocks_per_sm, smem)
+
+
+def work_items(p, n, h, w, stride):
+    """Yield (block, channel range, image, output row range, output column
+    range) for every item of plan `p`, in the kernel's order (block
+    g * bpg + j of channel group g takes items j, j + bpg, ...)."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    for g in range(p.groups):
+        for j in range(p.bpg):
+            for i in range(j, p.items, p.bpg):
+                strip, seg = i % p.strips, (i // p.strips) % p.segs
+                img = i // (p.strips * p.segs)
+                yield (g * p.bpg + j, (g * p.cb, (g + 1) * p.cb), img,
+                       (seg * p.rs, min(ho, (seg + 1) * p.rs)),
+                       (strip * p.sw, min(wo, (strip + 1) * p.sw)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def fused_dw_cuda(x, w, scale, offset, stride, act):
@@ -128,29 +199,33 @@ def fused_dw_cuda(x, w, scale, offset, stride, act):
                              f"shape {shape} on {x.device}")
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
-    if c % 2 or x.data_ptr() % (2 * x.element_size()):
-        raise ValueError("the kernel takes channel pairs: C must be even and "
-                         "x aligned to two elements")
+    if c % 2:
+        raise ValueError("the kernel takes channel pairs: C must be even")
     if act not in _ACT_CODES:
         raise ValueError(f"unsupported act {act!r}")
-    _, tw, tiles_h, tiles_w = tiles(h, wd, stride)
+    if x.numel() == 0:
+        raise ValueError("x must not be empty")
+    p = plan(n, h, wd, c, stride, x.element_size(),
+             _sm_count(x.device.index))
+    if x.data_ptr() % p.vec_bytes:
+        raise ValueError(f"x must be aligned to {p.vec_bytes} bytes for the "
+                         f"kernel's copies")
     ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1
     y = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
-    psum = torch.empty((n * tiles_h * tiles_w, c), dtype=torch.float32,
-                       device=x.device)
-    psq = torch.empty_like(psum)
+    part = torch.empty((2, p.bpg, c), dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         rc = lib.fused_dw_forward(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), offset.data_ptr(),
-            y.data_ptr(), psum.data_ptr(), psq.data_ptr(), n, h, wd, c,
-            stride, _ACT_CODES[act], int(x.dtype == torch.bfloat16), tw,
-            torch.cuda.current_stream().cuda_stream)
+            y.data_ptr(), part.data_ptr(), n, h, wd, c, stride,
+            _ACT_CODES[act], int(x.dtype == torch.bfloat16), p.vec_bytes,
+            p.cw, p.rs, p.bpg, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_dw kernel launch failed with CUDA error "
                            f"{rc}")
     launches[stride] += 1
-    return y, psum.sum(dim=0), psq.sum(dim=0)
+    s, q = part.sum(dim=1).unbind(0)  # the bpg partial rows, in order
+    return y, s, q
 
 
 def _elementwise(x, scale, offset, act):
