@@ -31,7 +31,25 @@ Phases, each printing one JSON line as soon as it ends:
    step: for each, the device busy share of the step's window, the fused
    kernel's device time and share, the 10 device kernels with the most
    time, and the kernels launched next to the fused one (a copy or
-   transpose there would mean the NHWC hand-over is not free).
+   transpose there would mean the NHWC hand-over is not free). The
+   search's state is then saved as searched_model_01.pkl in the driver's
+   format.
+5. eval: search -> parse -> retrain -> test -> fold on the card. The
+   port's parsing_model writes model.config from that checkpoint and
+   EvalNetwork.from_config builds it. TF-NAS-A (configs/tfnas_a_tpu.config,
+   1000 classes, 224^2) takes EVAL_STEPS timed train steps at batch 256,
+   bf16, on synthetic uint8 batches through the prefetcher and the on-card
+   normaliser, with the lr of cosine_lr_with_warmup (step ms from the
+   second step, loss, peak memory), and one more under torch.profiler
+   (busy share, top kernels); the parsed net takes two. Each writes
+   an eval checkpoint that must read back exactly. test.py's validation
+   (f32) scores 1000 images at batch 256, the last batch padded, and must
+   equal the same images scored unpadded (1e-4). BN folding and the
+   space-to-depth stem must equal the unfolded forward: f32 with TF32 off
+   within 1e-4 x max|logit|, bf16 within 2e-2 x max|logit|; then bf16
+   inference images/s of the unfolded, folded and s2d nets at batch 256
+   (CUDA events, in turns). The eval path launches no fused kernel: its
+   depthwise convolutions are cuDNN's, as they are XLA's in JAX.
 
 The line before the last holds the kernels' summary; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -44,6 +62,7 @@ import json
 import math
 import os
 import pickle
+import shutil
 import signal
 import subprocess
 import sys
@@ -52,6 +71,9 @@ import time
 
 DEADLINE_S = 600
 BATCH = 32
+EVAL_BATCH = 256
+EVAL_STEPS = 5
+VAL_IMAGES = 1000           # 3 full batches of 256 and one padded
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 TARGET_LAT = 0.25           # ms, inside latency_tpu.pkl's range
@@ -81,13 +103,21 @@ def phase_env(torch, fused_dw):
     t0 = time.perf_counter()
     fused_dw.build_library()
     wall = time.perf_counter() - t0
+    # the C++ image pipeline (runtime/native.py) needs g++ and libjpeg's
+    # header; the smoke does not use it, it records whether they are here
+    probe = subprocess.run(["g++", "-fsyntax-only", "-x", "c++", "-"],
+                           input="#include <cstdio>\n#include <jpeglib.h>\n",
+                           capture_output=True, text=True, timeout=60) \
+        if shutil.which("g++") else None
     emit({"phase": "env", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0],
           "kernel_build_s": round(wall, 3),
           "nvcc_flags": " ".join(fused_dw.NVCC_FLAGS),
-          "ptxas": fused_dw.build_info["log"][-800:]})
+          "ptxas": fused_dw.build_info["log"][-800:],
+          "gxx": shutil.which("g++"),
+          "jpeglib_h": probe is not None and probe.returncode == 0})
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -457,7 +487,244 @@ def phase_search(torch, fused_dw, tmpdir):
                 run(f"{name}_profiled", expect, fn)
         prof.export_chrome_trace(trace)
         emit(_profile_summary(name, trace))
-    return dict(fused_dw.launches)
+    launches = dict(fused_dw.launches)
+
+    from tfnas_tpu_torch.convert import params_to_jax
+    from tfnas_tpu_torch.utils.checkpoint import save_checkpoint_file
+    searched = os.path.join(tmpdir, "searched_model_01.pkl")
+    t = time.perf_counter()
+    save_checkpoint_file(to_numpy_tree({
+        "params": params_to_jax(params), "arch_params": arch,
+        "mc_mask_dddict": mc_mask, "epoch": 1, "T": T}), searched)
+    emit({"phase": "search", "step": "save_searched_model",
+          "ms": 1e3 * (time.perf_counter() - t),
+          "MB": os.path.getsize(searched) / 1e6})
+    return launches, searched
+
+
+# -- phase 5 ------------------------------------------------------------------
+
+def _u8_batches(np, n, seed, valid=None):
+    """n synthetic uint8 [EVAL_BATCH, 224, 224, 3] batches and int32
+    labels; with `valid`, the last holds that many images, padded to the
+    batch by repeating its last one, and comes as (x, y, valid)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        x = rng.integers(0, 256, (EVAL_BATCH, 224, 224, 3), dtype=np.uint8)
+        y = rng.integers(0, 1000, EVAL_BATCH).astype(np.int32)
+        if valid is not None and i == n - 1:
+            x[valid:], y[valid:] = x[valid - 1], y[valid - 1]
+            out.append((x, y, valid))
+        else:
+            out.append((x, y))
+    return out
+
+
+def _same_tree(torch, a, b):
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(_same_tree(torch, a[k], b[k]) for k in a))
+    return torch.equal(a, b)
+
+
+def _retrain(torch, np, name, net, n_steps, tmpdir, profile=False):
+    """n_steps bf16 train steps of `net` at EVAL_BATCH through the
+    prefetcher and the on-card normaliser (with `profile`, the last one
+    under torch.profiler), then an eval checkpoint that must read back
+    exactly. Returns (state, the step's record)."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+    from torch.profiler import record_function
+    from tfnas_tpu_torch.convert import eval_state_from_jax, params_to_jax
+    from tfnas_tpu_torch.cost import (calculate_FLOPs_in_M,
+                                      count_parameters_in_MB)
+    from tfnas_tpu_torch.data import DevicePrefetcher, device_normalizer
+    from tfnas_tpu_torch.parallel.train_dp import (cosine_lr_with_warmup,
+                                                   init_eval_train_state,
+                                                   make_eval_steps)
+    from tfnas_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                  save_checkpoint)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    state = init_eval_train_state(net, gen)
+    train_step, _ = make_eval_steps(net, num_classes=1000)
+    prep = device_normalizer(torch.bfloat16)
+    lr = cosine_lr_with_warmup(0.2, 250, 0, EVAL_BATCH)
+    host = _u8_batches(np, 2, 7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    batches = (host[i % 2] for i in range(n_steps))
+    for x, y in DevicePrefetcher(batches, dev):
+        if profile and len(step_ms) == n_steps - 1:
+            trace = os.path.join(tmpdir, f"trace_{name}.json")
+            with profiler(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                with record_function("step"):
+                    state, m = train_step(state, prep(x), y, lr,
+                                          net.draw_keep(len(y), gen))
+                    torch.cuda.synchronize()
+            prof.export_chrome_trace(trace)
+            summary = _profile_summary(f"eval_train_{name}", trace)
+            emit({k: v for k, v in summary.items()
+                  if not k.startswith(("fused_dw", "copy_or"))})
+            continue
+        t = time.perf_counter()
+        state, m = train_step(state, prep(x), y, lr,
+                              net.draw_keep(len(y), gen))
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"{name}: loss {losses[-1]}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t = time.perf_counter()
+    path = save_checkpoint({
+        "epoch": 1, "params": params_to_jax(state.params),
+        "bn_state": params_to_jax(state.bn_state),
+        "momentum": params_to_jax(state.momentum),
+        "best_acc_top1": 0.0, "best_acc_top5": 0.0,
+        "model_config": net.config}, False, tmpdir, f"{name}_checkpoint.pkl")
+    back = eval_state_from_jax(load_checkpoint(path), dev)
+    save_ms = 1e3 * (time.perf_counter() - t)
+    if not all(_same_tree(torch, getattr(state, k), getattr(back, k))
+               for k in ("params", "bn_state", "momentum")):
+        raise AssertionError(f"{name}: the checkpoint does not read back")
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    rec = {"phase": "eval", "step": "retrain", "model": name,
+           "batch": EVAL_BATCH, "dtype": "bf16", "lr": lr,
+           "step_ms": step_ms, "steady_step_ms": steady,
+           "train_images_per_s": EVAL_BATCH / steady * 1e3,
+           "loss": losses, "peak_mem_GB": peak,
+           "params_M": count_parameters_in_MB(state.params),
+           "flops_M": calculate_FLOPs_in_M(net, 224),
+           "checkpoint_MB": os.path.getsize(path) / 1e6,
+           "checkpoint_roundtrip_ms": save_ms}
+    emit(rec)
+    return state, rec
+
+
+def _test(torch, np, net, state):
+    """test.py's validation (f32, the padded final batch masked) over
+    VAL_IMAGES images, against the same images scored without padding."""
+    from tfnas_tpu_torch.data import device_normalizer
+    from tfnas_tpu_torch.parallel.train_dp import make_eval_steps
+    from tfnas_tpu_torch.train_eval import validate
+
+    dev = torch.device("cuda")
+    nb = -(-VAL_IMAGES // EVAL_BATCH)
+    valid = VAL_IMAGES - (nb - 1) * EVAL_BATCH
+    batches = _u8_batches(np, nb, 11, valid)
+    _, val_step = make_eval_steps(net, num_classes=1000,
+                                  compute_dtype=torch.float32)
+    prep = device_normalizer(torch.float32)
+    t = time.perf_counter()
+    loss, top1, top5 = validate(val_step, state, batches, prep, dev)
+    ms = 1e3 * (time.perf_counter() - t)
+    sums = np.zeros(4)
+    for b in batches:
+        n = b[2] if len(b) > 2 else EVAL_BATCH
+        x = torch.from_numpy(b[0][:n]).to(dev)
+        y = torch.from_numpy(b[1][:n]).to(dev).long()
+        m = val_step(state, prep(x), y)
+        sums += [float(m["loss"]) * n, float(m["top1"]) * n,
+                 float(m["top5"]) * n, n]
+    want = sums[:3] / sums[3]
+    err = float(np.abs(np.array([loss, top1, top5]) - want).max())
+    rec = {"phase": "eval", "step": "test", "images": VAL_IMAGES,
+           "batch": EVAL_BATCH, "padded": EVAL_BATCH - valid,
+           "loss": float(loss), "top1": float(top1), "top5": float(top5),
+           "unpadded": want.tolist(), "max_abs_err": err, "ms": ms}
+    emit(rec)
+    if not (err <= 1e-4 and all(math.isfinite(v) for v in want)):
+        raise AssertionError(f"padded validation disagrees: {rec}")
+
+
+def _folds(torch, np, net, state):
+    """BN folding and the s2d stem against the unfolded forward, f32
+    (TF32 off) and bf16; then bf16 inference images/s, in turns."""
+    from tfnas_tpu_torch.data import device_normalizer
+    from tfnas_tpu_torch.models.folding import (fold_batchnorm,
+                                                fold_stem_space_to_depth)
+    from tfnas_tpu_torch.search.train_step import tree_map
+
+    dev = torch.device("cuda")
+    x8 = torch.from_numpy(_u8_batches(np, 1, 13)[0][0]).to(dev)
+    folded, fparams = fold_batchnorm(net, state.params, state.bn_state)
+    s2d, sparams = fold_stem_space_to_depth(folded, fparams)
+    nets = {"unfolded": (net, state.params, state.bn_state),
+            "folded": (folded, fparams, {}), "s2d": (s2d, sparams, {})}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    rec = {"phase": "eval", "step": "fold", "batch": EVAL_BATCH}
+    failures = []
+    with torch.no_grad():
+        for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            x = device_normalizer(dtype)(x8)
+            ref = net.apply(state.params, state.bn_state, x)[0].float()
+            scale = ref.abs().max().item()
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            for name in ("folded", "s2d"):
+                n2, p2, s2 = nets[name]
+                got = n2.apply(p2, s2, x)[0].float()
+                err = (got - ref).abs().max().item()
+                rec[f"{name}_{tag}_max_abs_err"] = err
+                rec[f"{name}_{tag}_tol"] = rel * scale
+                rec[f"{name}_{tag}_top1_agree"] = (
+                    got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+                if not err <= rel * scale:
+                    failures.append((name, tag, err, rel * scale))
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        # serving form: bf16 parameters, cast once
+        x = device_normalizer(torch.bfloat16)(x8)
+        fwd = {}
+        for name, (n2, p2, s2) in nets.items():
+            p16 = tree_map(lambda t: t.to(torch.bfloat16), p2)
+            fwd[name] = (lambda n2=n2, p16=p16, s2=s2:
+                         n2.apply(p16, s2, x))
+        ms = collections.defaultdict(list)
+        for name in ("unfolded", "folded", "s2d", "s2d", "folded",
+                     "unfolded"):
+            ms[name].append(_timed(torch, fwd[name], reps=10))
+        for name, t in ms.items():
+            rec[f"{name}_bf16_ms"] = t
+            rec[f"{name}_bf16_images_per_s"] = [EVAL_BATCH / v * 1e3
+                                                for v in t]
+    emit(rec)
+    if failures:
+        raise AssertionError(f"folded forward disagrees: {failures}")
+
+
+def phase_eval(torch, tmpdir, searched):
+    import numpy as np
+    from tfnas_tpu_torch import parsing_model
+    from tfnas_tpu_torch.models.eval_net import EvalNetwork
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg_path = os.path.join(tmpdir, "model.config")
+    t = time.perf_counter()
+    model = parsing_model.main([
+        "--model_path", searched, "--save_path", cfg_path, "--print_lat",
+        "--lookup_path", os.path.join(here, "latency_pkl", "latency_tpu.pkl")])
+    with open(cfg_path) as f:
+        parsed = EvalNetwork.from_config(1000, json.load(f), 0.2, 0.2)
+    if parsed.config != model.config:
+        raise AssertionError("model.config does not build the parsed net")
+    emit({"phase": "eval", "step": "parse",
+          "ms": 1e3 * (time.perf_counter() - t),
+          "depths": [len(b) for b in parsed.stages.values()]})
+
+    with open(os.path.join(here, "configs", "tfnas_a_tpu.config")) as f:
+        tfnas_a = EvalNetwork.from_config(1000, json.load(f), 0.2, 0.2)
+    state, _ = _retrain(torch, np, "tfnas_a", tfnas_a, EVAL_STEPS + 1,
+                        tmpdir, profile=True)
+    _retrain(torch, np, "parsed", parsed, 2, tmpdir)
+    _test(torch, np, tfnas_a, state)
+    _folds(torch, np, tfnas_a, state)
 
 
 def _profile_summary(step, path):
@@ -530,7 +797,14 @@ def main():
     phase_env(torch, fused_dw)
     per_stride, times = phase_kernel(torch, fused_dw, tss)
     with tempfile.TemporaryDirectory() as tmpdir:
-        launches = phase_search(torch, fused_dw, tmpdir)
+        launches, searched = phase_search(torch, fused_dw, tmpdir)
+        fused_dw.reset_launches()  # the eval path's own count
+        phase_eval(torch, tmpdir, searched)
+        eval_launches = sum(fused_dw.launches.values())
+        emit({"phase": "eval", "step": "fused_dw_launches",
+              "launches": eval_launches})
+        if eval_launches:
+            raise AssertionError("the eval path launched the fused kernel")
     for stride, n in launches.items():
         if n == 0:
             raise AssertionError(f"stride-{stride} kernel never launched on "

@@ -1,12 +1,16 @@
 """The port on a CUDA card: the hand-written fused depthwise kernel against
-its plain PyTorch version, and the supernet on the card against the same
-supernet on the CPU. These tests skip without a card. They import no JAX,
+its plain PyTorch version (on the current device and, with two cards, on
+another), the supernet and one warmup, weight and arch step on the card
+against the same on the CPU, the eval net's forward, train step and folds,
+and the prefetcher. These tests skip without a card. They import no JAX,
 so they run on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
 Tolerances: f32 with TF32 off, 2e-4 for y (summation order) and 1e-3 for
-the sums; bf16, 2e-2 (one bf16 rounding of y, 2^-8 relative, either way).
+the sums; bf16, 2e-2 (one bf16 rounding of y, 2^-8 relative, either way);
+the search steps and the eval forward on the card against the CPU 1e-4,
+one eval train step and the folds 1e-5.
 """
 
 import pytest
@@ -15,6 +19,7 @@ import torch
 from tfnas_tpu_torch.kernels import fused_dw as tfused
 from tfnas_tpu_torch.models import search_space as tss
 from tfnas_tpu_torch.models.supernet import SuperNetwork
+from tfnas_tpu_torch.search.train_step import tree_leaves, tree_map
 
 
 @pytest.fixture
@@ -145,3 +150,151 @@ def test_supernet_on_card_matches_cpu(cuda):
         assert launched == (6 if dev == cuda else 0)
     for c, k in zip(outs["cpu"], outs["cuda"]):
         torch.testing.assert_close(k, c, rtol=1e-4, atol=1e-4)
+
+
+def test_kernel_launches_on_current_and_other_device(cuda):
+    """The wrapper enters a device guard only for x off the current device;
+    the kernel is right on the current device and, with two cards, on the
+    other one."""
+    devices = [torch.device("cuda", torch.cuda.current_device())]
+    if torch.cuda.device_count() > 1:
+        devices.append(torch.device(
+            "cuda", (torch.cuda.current_device() + 1)
+            % torch.cuda.device_count()))
+    for dev in devices:
+        a = _inputs(7, 2, 14, 64, dev, torch.float32)
+        before = dict(tfused.launches)
+        got = tfused.fused_dw_cuda(*a, 1, "relu")
+        want = tfused.fused_dw_plain(*a, 1, "relu")
+        torch.cuda.synchronize(dev)
+        assert got[0].device == dev
+        assert tfused.launches[1] == before[1] + 1
+        torch.testing.assert_close(got[0], want[0], rtol=2e-4, atol=2e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree if tree is None or isinstance(tree, (int, float)) \
+        else tree.to(dev)
+
+
+def _eval_net():
+    from collections import OrderedDict
+    from tfnas_tpu_torch.models.eval_net import EvalNetwork
+    from tfnas_tpu_torch.search.parser import get_mc_num_dddict
+    sp = tss.tiny_space(32)
+    parsed = OrderedDict(
+        (stage, OrderedDict((b, (i + 5) % 8)
+                            for i, b in enumerate(sp.block_names(stage))))
+        for stage in sp.STAGE_NAMES)
+    net = EvalNetwork.from_parsed_arch(
+        10, parsed, get_mc_num_dddict(sp.build_mc_mask_dddict()), 0.3, 0.5,
+        space=sp)
+    params, state = net.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    state = tree_map(lambda t: t + 0.1 * torch.rand(t.shape, generator=g),
+                     state)
+    x = torch.randn((8, 32, 32, 3), generator=g)
+    y = torch.randint(0, 10, (8,), generator=g)
+    return net, params, state, x, y
+
+
+def test_eval_forward_and_train_step_on_card_match_cpu(cuda):
+    """The eval net's forward (eval and training with the same draws) and
+    one train step on the card equal the CPU's: forward 1e-4, the step's
+    params, BN state and momentum 1e-5, f32 with TF32 off."""
+    from tfnas_tpu_torch.parallel import train_dp
+    net, params, state, x, y = _eval_net()
+    keep = net.draw_keep(8, torch.Generator().manual_seed(2))
+    outs = []
+    for dev in ("cpu", cuda):
+        p, s = _to(params, dev), _to(state, dev)
+        ev, _ = net.apply(p, s, x.to(dev))
+        tr, st = net.apply(p, s, x.to(dev), training=True, keep=_to(keep, dev))
+        train, _ = train_dp.make_eval_steps(net, num_classes=10,
+                                            compute_dtype=torch.float32)
+        mom = tree_map(torch.zeros_like, p)
+        nst, m = train(train_dp.EvalTrainState(p, s, mom, 0), x.to(dev),
+                       y.to(dev), 0.1, _to(keep, dev))
+        outs.append([t.cpu() for t in [ev, tr] + tree_leaves(st)] + [
+            t.cpu() for t in tree_leaves(nst.params)
+            + tree_leaves(nst.bn_state) + tree_leaves(nst.momentum)
+            + [m["loss"]]])
+    n_fwd = 2 + len(tree_leaves(st))
+    for i, (c, k) in enumerate(zip(*outs)):
+        tol = 1e-4 if i < n_fwd else 1e-5
+        torch.testing.assert_close(k, c, rtol=tol, atol=tol)
+
+
+def test_folds_on_card_match_unfolded(cuda):
+    """fold_batchnorm and the s2d stem on the card against the unfolded
+    eval forward there: f32 1e-5."""
+    from tfnas_tpu_torch.models import folding
+    net, params, state, x, _ = _eval_net()
+    p, s, xc = _to(params, cuda), _to(state, cuda), x.to(cuda)
+    ref, _ = net.apply(p, s, xc)
+    folded, fp = folding.fold_batchnorm(net, p, s)
+    s2d, sp = folding.fold_stem_space_to_depth(folded, fp)
+    for n2, p2 in ((folded, fp), (s2d, sp)):
+        got, _ = n2.apply(p2, {}, xc)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_search_steps_on_card_match_cpu(cuda):
+    """One warmup, one weight and one arch step of the tiny supernet on the
+    card (through the fused kernel and its backward) against the same steps
+    on the CPU with the same draws: 1e-4, f32 with TF32 off."""
+    from tfnas_tpu_torch.search.train_step import (adam_init,
+                                                   make_search_steps)
+    net = SuperNetwork(10, space=tss.tiny_space(32))
+    params, arch = net.init(torch.Generator().manual_seed(0))
+    mc = net.ss.build_mc_mask_dddict()
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((4, 32, 32, 3), generator=g)
+    y = torch.randint(0, 10, (4,), generator=g)
+    ig = torch.randint(0, 8, (3,), generator=g)
+    ir = (ig + 1 + torch.randint(0, 7, (3,), generator=g)) % 8
+    u = torch.rand((3, 8), generator=g).clamp_min(1e-6)
+    lat = torch.rand((3, 8), generator=g) * 0.01
+    steps = make_search_steps(net, num_classes=10, lambda_lat=0.1,
+                              target_lat=0.02)
+    outs = []
+    for dev in ("cpu", cuda):
+        p, a = _to(params, dev), _to(arch, dev)
+        masks = net.device_masks(mc, dev)
+        um = net.update_masks(p, mc)
+        mom = tree_map(torch.zeros_like, p)
+        before = sum(tfused.launches.values())
+        p1, m1, _ = steps.warmup_step(p, a, mom, masks, um, x.to(dev),
+                                      y.to(dev), 0.025, ig.to(dev))
+        p2, m2, _ = steps.weight_step(p1, a, m1, masks, um, x.to(dev),
+                                      y.to(dev), 0.025, ig.to(dev),
+                                      ir.to(dev))
+        a3, opt, ma = steps.arch_step(p2, a, adam_init(a), masks, x.to(dev),
+                                      y.to(dev), lat.to(dev), 0.004, 5.0,
+                                      u.to(dev))
+        launched = sum(tfused.launches.values()) - before
+        assert launched == (0 if dev == "cpu" else 3 + 6 + 3)
+        outs.append([t.cpu() for t in tree_leaves(p2) + tree_leaves(m2)
+                     + tree_leaves(a3) + [ma["loss_a"], ma["lat"]]])
+    for c, k in zip(*outs):
+        torch.testing.assert_close(k, c, rtol=1e-4, atol=1e-4)
+
+
+def test_prefetcher_and_normalizer_on_card(cuda):
+    import numpy as np
+    from tfnas_tpu_torch.data import DevicePrefetcher, device_normalizer
+    rng = np.random.default_rng(0)
+    batches = [(rng.integers(0, 256, (4, 8, 8, 3), np.uint8),
+                np.arange(4, dtype=np.int32), 3) for _ in range(5)]
+    prep = device_normalizer(torch.bfloat16)
+    out = list(DevicePrefetcher(iter(batches), cuda))
+    assert len(out) == 5
+    for (x, y, n), (bx, by, bn) in zip(out, batches):
+        assert x.is_cuda and y.dtype == torch.int64 and n == bn
+        assert torch.equal(x.cpu(), torch.from_numpy(bx))
+        want = device_normalizer(torch.bfloat16)(torch.from_numpy(bx))
+        torch.testing.assert_close(prep(x).cpu(), want, rtol=0, atol=0)

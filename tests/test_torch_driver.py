@@ -28,11 +28,15 @@ def test_package_imports_no_jax():
         "for m in pkgutil.walk_packages(tfnas_tpu_torch.__path__, "
         "'tfnas_tpu_torch.'):\n"
         "    __import__(m.name)\n"
-        "import tfnas_tpu_torch.train_search\n"
+        "import tfnas_tpu_torch.train_search, tfnas_tpu_torch.train_eval\n"
+        "import tfnas_tpu_torch.parsing_model, tfnas_tpu_torch.test\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tfnas_tpu')]\n"
         "assert not bad, bad\n"
-        "assert 'tfnas_tpu_torch.kernels.fused_dw' in sys.modules\n")
+        "for m in ('kernels.fused_dw', 'runtime.native', 'models.eval_net',\n"
+        "          'models.folding', 'parallel.train_dp', 'cost.flops',\n"
+        "          'data.imagelist', 'data.transforms'):\n"
+        "    assert 'tfnas_tpu_torch.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 
@@ -43,18 +47,32 @@ def test_entry_points_refuse_cuda_without_card(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
-    from tfnas_tpu_torch.train_search import main
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        main(["--synthetic", "--space", "tiny", "--save", str(tmp_path)])
-    assert not list(tmp_path.iterdir())
+    from tfnas_tpu_torch import parsing_model, test, train_eval, train_search
+    ckpt = tmp_path / "model.pkl"
+    ckpt.write_bytes(b"")
+    save = ["--save", str(tmp_path)]
+    for main, argv in (
+            (train_search.main, ["--synthetic", "--space", "tiny"] + save),
+            (train_eval.main, ["--synthetic", "--config_path", os.path.join(
+                ROOT, "configs", "tfnas_a_tpu.config")] + save),
+            (parsing_model.main, ["--model_path", str(ckpt),
+                                  "--save_path", str(tmp_path / "m.config")]),
+            (test.main, ["--weights", str(ckpt), "--synthetic"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+    assert [p.name for p in tmp_path.iterdir()] == ["model.pkl"]
 
 
 def test_driver_refuses_unported_paths(tmp_path):
+    """--space hybrid is refused; real data is ported now, and a missing
+    image list stops the driver before it writes anything."""
     from tfnas_tpu_torch.train_search import main
     with pytest.raises(SystemExit, match="hybrid"):
         main(["--synthetic", "--space", "hybrid", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="real-data"):
-        main(["--space", "tiny", "--device", "cpu", "--save", str(tmp_path)])
+    with pytest.raises(FileNotFoundError, match="missing.txt"):
+        main(["--space", "tiny", "--device", "cpu", "--save", str(tmp_path),
+              "--train_list", str(tmp_path / "missing.txt")])
+    assert not list(tmp_path.iterdir())
 
 
 def _repo_files():

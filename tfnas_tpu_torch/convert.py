@@ -4,14 +4,19 @@ The JAX package keeps convolution kernels HWIO ([kh, kw, I, O]) and the
 supernet's stacked candidates as [8, kh, kw, I, O]; the port keeps them OIHW
 ([O, I, kh, kw]) and [8, O, I, kh, kw]. In both trees the 4-d and 5-d leaves
 are exactly the convolution kernels, so the rank decides the layout; every
-other leaf (dense and SE kernels, biases, arch parameters, masks) is copied
-as it is. Keys and nesting are the same in both trees.
+other leaf (dense and SE kernels, biases, BN statistics, arch parameters,
+masks) is copied as it is. Keys and nesting are the same in both trees, so
+the same two functions carry eval-network parameters, BN state and
+momentum (the folded stem's [2, 2, 4C, O] kernel included) both ways.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .parallel.train_dp import EvalTrainState
+from .search.train_step import zeros_like_tree
 
 _TO_TORCH = {4: (3, 2, 0, 1), 5: (0, 4, 3, 1, 2)}
 _TO_JAX = {4: (2, 3, 1, 0), 5: (0, 3, 4, 2, 1)}
@@ -47,3 +52,15 @@ def arch_from_jax(tree, device="cpu"):
     """Arch parameters (no layout change) -> f32 tensors."""
     return _map(tree, lambda a: torch.tensor(np.asarray(a, np.float32),
                                              device=device))
+
+
+def eval_state_from_jax(ckpt, device="cpu"):
+    """An eval checkpoint's {'params', 'bn_state', 'momentum', 'epoch'}
+    (either package's) -> EvalTrainState of tensors on `device`; a missing
+    momentum starts at zero."""
+    params = params_from_jax(ckpt["params"], device)
+    mom = ckpt.get("momentum")
+    return EvalTrainState(
+        params, params_from_jax(ckpt["bn_state"], device),
+        zeros_like_tree(params) if mom is None
+        else params_from_jax(mom, device), int(ckpt.get("epoch", 0)))

@@ -20,6 +20,7 @@ kernel's order, for the CPU tests.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -214,7 +215,12 @@ def fused_dw_cuda(x, w, scale, offset, stride, act):
     y = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
     part = torch.empty((2, p.bpg, c), dtype=torch.float32, device=x.device)
     lib = _library()
-    with torch.cuda.device(x.device):
+    # the device guard only when x is not on the current device: entering
+    # it costs host time on every call
+    guard = (contextlib.nullcontext()
+             if x.device.index == torch.cuda.current_device()
+             else torch.cuda.device(x.device))
+    with guard:
         rc = lib.fused_dw_forward(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), offset.data_ptr(),
             y.data_ptr(), part.data_ptr(), n, h, wd, c, stride,

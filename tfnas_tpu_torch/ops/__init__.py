@@ -1,12 +1,15 @@
 from .activations import ACT_FNS, apply_act, get_act_fn, hard_swish, relu, relu6, swish
 from .batchnorm import BN_EPS, BN_MOMENTUM, batch_norm, init_bn, stat_dtype
-from .conv import (conv2d, global_avg_pool, init_conv_kernel, init_linear,
-                   linear, torch_uniform_init)
-from .layers import ConvLayer, LinearLayer, MBInvertedResBlock
+from .conv import (channel_shuffle, conv2d, global_avg_pool,
+                   init_conv_kernel, init_linear, linear, torch_uniform_init)
+from .layers import (ConvLayer, IdentityLayer, LinearLayer,
+                     MBInvertedResBlock, drop_connect, set_layer_from_config)
 
 __all__ = [
     "ACT_FNS", "apply_act", "get_act_fn", "hard_swish", "relu", "relu6",
     "swish", "BN_EPS", "BN_MOMENTUM", "batch_norm", "init_bn", "stat_dtype",
-    "conv2d", "global_avg_pool", "init_conv_kernel", "init_linear", "linear",
-    "torch_uniform_init", "ConvLayer", "LinearLayer", "MBInvertedResBlock",
+    "channel_shuffle", "conv2d", "global_avg_pool", "init_conv_kernel",
+    "init_linear", "linear", "torch_uniform_init", "ConvLayer",
+    "IdentityLayer", "LinearLayer", "MBInvertedResBlock", "drop_connect",
+    "set_layer_from_config",
 ]

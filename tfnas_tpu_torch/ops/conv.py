@@ -57,3 +57,12 @@ def linear(x, params):
 def global_avg_pool(x):
     """NCHW -> NC global average pool."""
     return x.mean(dim=(2, 3))
+
+
+def channel_shuffle(x, groups):
+    """NCHW channel shuffle (tfnas_tpu/ops/conv.py `channel_shuffle`)."""
+    n, c, h, w = x.shape
+    if c % groups:
+        raise ValueError(f"{c} channels do not split into {groups} groups")
+    return x.reshape(n, groups, c // groups, h, w).transpose(1, 2).reshape(
+        n, c, h, w)

@@ -1,11 +1,12 @@
-"""The layers the supernet's stems and head use
+"""The layers of the supernet and of the fixed-architecture eval network
 (counterpart of tfnas_tpu/ops/layers.py).
 
 Each layer is a frozen dataclass describing shapes and flags, with
 `init(generator) -> (params, state)` and
 `apply(params, state, x, training=...) -> (y, new_state)` over plain
 dictionaries of tensors, so the parameter trees match the JAX package's key
-for key. Activations are NCHW.
+for key. Activations are NCHW. `config` emits the model.config JSON entry
+of a layer and `set_layer_from_config` reads one back.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import torch
 
 from .activations import apply_act
 from .batchnorm import batch_norm, init_bn
-from .conv import (conv2d, global_avg_pool, init_conv_kernel, init_linear,
-                   linear, torch_uniform_init)
+from .conv import (channel_shuffle, conv2d, global_avg_pool,
+                   init_conv_kernel, init_linear, linear, torch_uniform_init)
 
 
 def _ops_list(ops_order):
@@ -34,6 +35,14 @@ def _bn_before_weight(ops_order):
     raise ValueError(f"Invalid ops_order: {ops_order}")
 
 
+def drop_connect(x, keep, drop_rate):
+    """Per-sample stochastic depth: x / keep_prob * keep, in f32. keep: the
+    [N] 0/1 draw, floor(keep_prob + U[0, 1)) in the JAX package."""
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    keep = keep.to(torch.float32).reshape(shape)
+    return (x.float() / (1.0 - drop_rate) * keep).to(x.dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class ConvLayer:
     """Conv2d + optional BN + act in a configurable order."""
@@ -43,11 +52,35 @@ class ConvLayer:
     kernel_size: int = 3
     stride: int = 1
     groups: int = 1
+    has_shuffle: bool = False
     bias: bool = False
     use_bn: bool = True
     affine: bool = True
     act_func: Optional[str] = "relu6"
     ops_order: str = "weight_bn_act"
+
+    name = "ConvLayer"
+
+    @property
+    def bn_before_weight(self):
+        return _bn_before_weight(self.ops_order)
+
+    @property
+    def config(self):
+        return {
+            "name": "ConvLayer",
+            "kernel_size": self.kernel_size,
+            "stride": self.stride,
+            "groups": self.groups,
+            "has_shuffle": self.has_shuffle,
+            "bias": self.bias,
+            "in_channels": self.in_channels,
+            "out_channels": self.out_channels,
+            "use_bn": self.use_bn,
+            "affine": self.affine,
+            "act_func": self.act_func,
+            "ops_order": self.ops_order,
+        }
 
     def init(self, generator):
         k = self.kernel_size
@@ -59,7 +92,7 @@ class ConvLayer:
                                        device=generator.device)
         params, state = {"conv": conv}, {}
         if self.use_bn:
-            c = (self.in_channels if _bn_before_weight(self.ops_order)
+            c = (self.in_channels if self.bn_before_weight
                  else self.out_channels)
             params["bn"], state["bn"] = init_bn(c, self.affine,
                                                 generator.device)
@@ -72,6 +105,8 @@ class ConvLayer:
                 x = conv2d(x, params["conv"]["kernel"], stride=self.stride,
                            groups=self.groups,
                            bias=params["conv"].get("bias"))
+                if self.has_shuffle and self.groups > 1:
+                    x = channel_shuffle(x, self.groups)
             elif op == "bn":
                 if self.use_bn:
                     x, new_state["bn"] = batch_norm(
@@ -81,6 +116,50 @@ class ConvLayer:
                 x = apply_act(x, self.act_func)
             else:
                 raise ValueError(f"Unrecognized op: {op}")
+        return x, new_state
+
+
+@dataclasses.dataclass(frozen=True)
+class IdentityLayer:
+    """Pass-through layer with optional BN + act."""
+
+    in_channels: int
+    out_channels: int
+    use_bn: bool = False
+    affine: bool = False
+    act_func: Optional[str] = None
+    ops_order: str = "weight_bn_act"
+
+    name = "IdentityLayer"
+
+    @property
+    def config(self):
+        return {
+            "name": "IdentityLayer",
+            "in_channels": self.in_channels,
+            "out_channels": self.out_channels,
+            "use_bn": self.use_bn,
+            "affine": self.affine,
+            "act_func": self.act_func,
+            "ops_order": self.ops_order,
+        }
+
+    def init(self, generator):
+        params, state = {}, {}
+        if self.use_bn:
+            params["bn"], state["bn"] = init_bn(self.out_channels,
+                                                self.affine, generator.device)
+        return params, state
+
+    def apply(self, params, state, x, *, training=False):
+        new_state = dict(state)
+        for op in _ops_list(self.ops_order):
+            if op == "bn" and self.use_bn:
+                x, new_state["bn"] = batch_norm(
+                    x, params.get("bn", {}), state.get("bn", {}),
+                    affine=self.affine, training=training)
+            elif op == "act":
+                x = apply_act(x, self.act_func)
         return x, new_state
 
 
@@ -95,6 +174,21 @@ class LinearLayer:
     affine: bool = False
     act_func: Optional[str] = None
     ops_order: str = "weight_bn_act"
+
+    name = "LinearLayer"
+
+    @property
+    def config(self):
+        return {
+            "name": "LinearLayer",
+            "in_features": self.in_features,
+            "out_features": self.out_features,
+            "bias": self.bias,
+            "use_bn": self.use_bn,
+            "affine": self.affine,
+            "act_func": self.act_func,
+            "ops_order": self.ops_order,
+        }
 
     def init(self, generator):
         params = {"linear": init_linear(self.in_features, self.out_features,
@@ -130,8 +224,9 @@ class MBInvertedResBlock:
 
     1x1 expand conv (+BN+act) -> kxk depthwise (+BN+act) -> optional SE
     gate -> 1x1 project conv (+BN) -> residual add iff ic == oc and
-    stride == 1. The expand conv is omitted, and mid_channels snaps to
-    in_channels, when mid_channels <= in_channels.
+    stride == 1, with drop-connect on the residual branch when training.
+    The expand conv is omitted, and mid_channels snaps to in_channels, when
+    mid_channels <= in_channels.
     """
 
     in_channels: int
@@ -140,9 +235,15 @@ class MBInvertedResBlock:
     out_channels: int
     kernel_size: int = 3
     stride: int = 1
+    groups: int = 1
+    has_shuffle: bool = False
+    bias: bool = False
     use_bn: bool = True
     affine: bool = True
     act_func: Optional[str] = "relu6"
+    drop_connect_rate: float = 0.0
+
+    name = "MBInvertedResBlock"
 
     def __post_init__(self):
         if self.mid_channels <= self.in_channels:
@@ -162,8 +263,30 @@ class MBInvertedResBlock:
     def has_residual(self):
         return self.in_channels == self.out_channels and self.stride == 1
 
+    @property
+    def config(self):
+        return {
+            "name": "MBInvertedResBlock",
+            "in_channels": self.in_channels,
+            "mid_channels": self.mid_channels,
+            "se_channels": self.se_channels,
+            "out_channels": self.out_channels,
+            "kernel_size": self.kernel_size,
+            "stride": self.stride,
+            "groups": self.groups,
+            "has_shuffle": self.has_shuffle,
+            "bias": self.bias,
+            "use_bn": self.use_bn,
+            "affine": self.affine,
+            "act_func": self.act_func,
+        }
+
     def _conv_bn(self, kernel, generator):
-        sub_p, sub_s = {"conv": {"kernel": kernel}}, {}
+        conv = {"kernel": kernel}
+        if self.bias:
+            conv["bias"] = torch.zeros(kernel.shape[0],
+                                       device=generator.device)
+        sub_p, sub_s = {"conv": conv}, {}
         if self.use_bn:
             sub_p["bn"], sub_s["bn"] = init_bn(kernel.shape[0], self.affine,
                                                generator.device)
@@ -171,11 +294,11 @@ class MBInvertedResBlock:
 
     def init(self, generator):
         params, state = {}, {}
-        mc, k = self.mid_channels, self.kernel_size
+        mc, k, g = self.mid_channels, self.kernel_size, self.groups
         if self.has_expand:
             params["inverted_bottleneck"], state["inverted_bottleneck"] = \
-                self._conv_bn(init_conv_kernel(1, 1, self.in_channels, mc,
-                                               generator), generator)
+                self._conv_bn(init_conv_kernel(1, 1, self.in_channels // g,
+                                               mc, generator), generator)
         params["depth_conv"], state["depth_conv"] = self._conv_bn(
             init_conv_kernel(k, k, 1, mc, generator), generator)
         if self.has_se:
@@ -191,7 +314,7 @@ class MBInvertedResBlock:
                 },
             }
         params["point_linear"], state["point_linear"] = self._conv_bn(
-            init_conv_kernel(1, 1, mc, self.out_channels, generator),
+            init_conv_kernel(1, 1, mc // g, self.out_channels, generator),
             generator)
         return params, state
 
@@ -203,16 +326,27 @@ class MBInvertedResBlock:
             affine=self.affine, training=training)
         return x
 
-    def apply(self, params, state, x, *, training=False):
+    def _conv(self, x, params, name, stride=1, groups=None):
+        conv = params[name]["conv"]
+        return conv2d(x, conv["kernel"], stride=stride,
+                      groups=self.groups if groups is None else groups,
+                      bias=conv.get("bias"))
+
+    def apply(self, params, state, x, *, training=False, keep=None):
+        """keep: the [N] 0/1 drop-connect draw of this block (used when
+        training with drop_connect_rate > 0 and a residual)."""
         new_state = {k: dict(v) for k, v in state.items()}
+        shuffle = self.has_shuffle and self.groups > 1
         res = x
         if self.has_expand:
-            x = conv2d(x, params["inverted_bottleneck"]["conv"]["kernel"])
+            x = self._conv(x, params, "inverted_bottleneck")
             x = self._bn(x, params, state, new_state, "inverted_bottleneck",
                          training)
             x = apply_act(x, self.act_func)
-        x = conv2d(x, params["depth_conv"]["conv"]["kernel"],
-                   stride=self.stride, groups=self.mid_channels)
+            if shuffle:
+                x = channel_shuffle(x, self.groups)
+        x = self._conv(x, params, "depth_conv", self.stride,
+                       self.mid_channels)
         x = self._bn(x, params, state, new_state, "depth_conv", training)
         x = apply_act(x, self.act_func)
         if self.has_se:
@@ -222,8 +356,35 @@ class MBInvertedResBlock:
             z = linear(z, se["conv_expand"])
             gate = torch.sigmoid(z.float()).to(x.dtype)
             x = x * gate[:, :, None, None]
-        x = conv2d(x, params["point_linear"]["conv"]["kernel"])
+        x = self._conv(x, params, "point_linear")
         x = self._bn(x, params, state, new_state, "point_linear", training)
+        if shuffle:
+            x = channel_shuffle(x, self.groups)
         if self.has_residual:
+            if self.drop_connect_rate > 0.0 and training and keep is not None:
+                x = drop_connect(x, keep, self.drop_connect_rate)
             x = x + res
         return x, new_state
+
+
+# -- config (de)serialisation ----------------------------------------------
+
+_NAME2LAYER = {
+    "ConvLayer": ConvLayer,
+    "IdentityLayer": IdentityLayer,
+    "LinearLayer": LinearLayer,
+    "MBInvertedResBlock": MBInvertedResBlock,
+}
+
+
+def set_layer_from_config(layer_config):
+    """model.config entry -> layer object; the input dict is not changed."""
+    if layer_config is None:
+        return None
+    cfg = dict(layer_config)
+    name = cfg.pop("name")
+    if name == "ViTBlock":
+        raise NotImplementedError(
+            "ViTBlock (the hybrid conv/ViT space) is not yet ported to "
+            "PyTorch")
+    return _NAME2LAYER[name](**cfg)

@@ -1,0 +1,98 @@
+"""Eval-network training and validation steps (counterpart of
+tfnas_tpu/parallel/train_dp.py).
+
+One process and one card: the JAX package's steps run data-parallel over a
+device mesh with cross-replica BN; here the batch is the card's, and the
+port has no data-parallel trainer yet. Activations run in the compute dtype
+(bf16 by default) with f32 parameters and f32 BN statistics.
+
+Optimiser: SGD momentum 0.9, weight decay 1e-5, gradient clip 5.0 by
+global norm (search/train_step.py's sgd_momentum_update with every entry
+updated), label smoothing 0.1, per-epoch cosine lr with a 5-epoch linear
+warmup when the batch exceeds 256.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+from ..search.train_step import (sgd_momentum_update, tree_map,
+                                 value_and_grad, zeros_like_tree)
+from ..utils.metrics import accuracy, cross_entropy_label_smooth, nll
+
+
+class EvalTrainState(NamedTuple):
+    params: Any
+    bn_state: Any
+    momentum: Any
+    epoch: int
+
+
+def init_eval_train_state(net, generator):
+    params, bn_state = net.init(generator)
+    return EvalTrainState(params=params, bn_state=bn_state,
+                          momentum=zeros_like_tree(params), epoch=0)
+
+
+def make_eval_steps(net, *, num_classes, label_smooth=0.1, momentum=0.9,
+                    weight_decay=1e-5, grad_clip=5.0,
+                    compute_dtype=torch.bfloat16):
+    """(train_step, val_step) for EvalNetwork `net`:
+
+    train_step(state, x, y, lr, keep=None) -> (state, metrics)
+    val_step(state, x, y, wmask=None) -> metrics
+
+    x: [N, H, W, 3] (cast to the compute dtype); y: int [N]; keep: the
+    drop-connect and dropout draws of `net.draw_keep`; wmask: [N] 0/1
+    validity of a padded final batch. Metrics stay on the device."""
+
+    def train_step(state, x, y, lr, keep=None):
+        def loss_fn(p):
+            logits, new_bn = net.apply(p, state.bn_state, x.to(compute_dtype),
+                                       training=True, keep=keep)
+            loss = cross_entropy_label_smooth(logits, y, num_classes,
+                                              label_smooth)
+            return loss, (logits.detach(),
+                          tree_map(torch.Tensor.detach, new_bn))
+
+        (loss, (logits, new_bn)), grads = value_and_grad(loss_fn,
+                                                         state.params)
+        params, mom = sgd_momentum_update(
+            state.params, grads, state.momentum,
+            tree_map(lambda p: None, state.params), lr=lr,
+            momentum=momentum, weight_decay=weight_decay,
+            grad_clip=grad_clip)
+        top1, top5 = accuracy(logits, y, topk=(1, 5))
+        return (EvalTrainState(params, new_bn, mom, state.epoch),
+                {"loss": loss, "top1": top1, "top5": top5})
+
+    @torch.no_grad()
+    def val_step(state, x, y, wmask=None):
+        """Eval-mode metrics as weighted sums over the valid samples:
+        sum(w * value) / max(sum(w), 1), exact over a padded set."""
+        logits, _ = net.apply(state.params, state.bn_state,
+                              x.to(compute_dtype), training=False)
+        per = nll(logits, y)
+        w = (torch.ones(y.shape, device=logits.device) if wmask is None
+             else wmask.float())
+        pred = torch.topk(logits, 5, dim=-1).indices
+        correct = (pred == y[:, None]).float() * w[:, None]
+        wsum = torch.clamp(w.sum(), min=1.0)
+        return {"loss": (per * w).sum() / wsum,
+                "top1": correct[:, :1].sum() / wsum * 100.0,
+                "top5": correct.sum() / wsum * 100.0}
+
+    return train_step, val_step
+
+
+def cosine_lr_with_warmup(base_lr, epochs, epoch, batch_size,
+                          warmup_epochs=5):
+    """Per-epoch lr: closed-form cosine, times a linear warmup over the
+    first `warmup_epochs` epochs when batch_size > 256."""
+    lr = base_lr * (1 + math.cos(math.pi * epoch / epochs)) / 2
+    if epoch < warmup_epochs and batch_size > 256:
+        lr = lr * (epoch + 1) / warmup_epochs
+    return float(lr)

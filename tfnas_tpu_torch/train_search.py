@@ -4,7 +4,10 @@
     python -m tfnas_tpu_torch.train_search --synthetic --save /tmp/search ...
 
 Same flags and defaults as the JAX driver for `--space mbconv` and
-`--space tiny` with `--synthetic` data, plus `--device` (default cuda).
+`--space tiny`, plus `--device` (default cuda). Real lists (--img_root,
+--train_list, --val_list) go through ImageList (uint8 pixels), the threaded
+DataLoader and the card's prefetcher and are normalised on the card;
+--synthetic makes the JAX driver's numpy batches.
 The bi-level loop is a plain Python loop: warmup epochs take one
 Gumbel-sampled weight step per batch; later epochs take a bi-sampling weight
 step per batch and a soft arch step every second batch, then rescale the
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import itertools
 import logging
 import pickle
 import time
@@ -27,7 +31,8 @@ import torch
 from .convert import arch_from_jax, params_from_jax, params_to_jax
 from .cost.lut import (build_space_analytic_lut, lat_vectors_for_mc,
                        load_lat_lookup)
-from .data.synthetic import synthetic_loader
+from .data import (DataLoader, DevicePrefetcher, ImageList, device_normalizer,
+                   synthetic_loader)
 from .device import resolve_device
 from .models import search_space as ss
 from .models.supernet import SuperNetwork
@@ -88,14 +93,63 @@ parser.add_argument('--scan_units', type=int, default=1,
 parser.add_argument('--device', type=str, default='cuda')
 
 
+def load_resume(path, device):
+    """(params, arch_params, mc_mask_dddict, epoch, T) of a search
+    checkpoint written by either package's driver."""
+    ckpt = load_checkpoint(path)
+    return (params_from_jax(ckpt['params'], device),
+            arch_from_jax(ckpt['arch_params'], device),
+            ckpt['mc_mask_dddict'], int(ckpt['epoch']), float(ckpt['T']))
+
+
+def make_loaders(args):
+    """(train_iter, val_iter, full_val_iter), each epoch -> numpy batches:
+    train batches, the arch steps' batches (shuffled, whole batches) and
+    the final validation's (x, y, n_valid) over the padded full set."""
+    if args.synthetic:
+        spe = args.steps_per_epoch or 100
+
+        def val(ep):
+            return synthetic_loader(args.batch_size, max(spe // 4, 1),
+                                    args.num_classes, args.image_size,
+                                    seed=10_000 + ep)
+        return (lambda ep: synthetic_loader(
+                    args.batch_size, spe, args.num_classes, args.image_size,
+                    seed=ep),
+                val, val)
+    train_ds = ImageList(args.img_root, args.train_list, training=True,
+                         image_size=args.image_size,
+                         rrc_scale=(args.rrc_min_scale, 1.0))
+    val_ds = ImageList(args.img_root, args.val_list, training=False,
+                       image_size=args.image_size)
+    tl = DataLoader(train_ds, args.batch_size, shuffle=True,
+                    num_workers=args.workers, seed=args.seed)
+    vl = DataLoader(val_ds, args.batch_size, shuffle=True,
+                    num_workers=args.workers, seed=args.seed + 1)
+    fvl = DataLoader(val_ds, args.batch_size, shuffle=False,
+                     num_workers=args.workers, seed=args.seed + 1,
+                     drop_last=False, pad_last=True)
+
+    def train_iter(ep):
+        tl.set_epoch(ep)
+        it = iter(tl)
+        if args.steps_per_epoch:
+            return itertools.islice(it, args.steps_per_epoch)
+        return it
+
+    def val_iter(ep):
+        vl.set_epoch(ep)
+        return iter(vl)
+
+    return train_iter, val_iter, lambda ep: iter(fvl)
+
+
 def main(argv=None):
     args = parser.parse_args(argv)
     if args.space == 'hybrid':
         raise SystemExit("--space hybrid is not yet ported to PyTorch")
-    if not args.synthetic:
-        raise SystemExit("the real-data pipeline is not yet ported to "
-                         "PyTorch; pass --synthetic")
     device = resolve_device(args.device)
+    train_iter, val_iter, full_val_iter = make_loaders(args)
     run_dir = setup_experiment(args.save, 'search', args.note)
     logging.info("args = %s", args)
     logging.info("device: %s", device)
@@ -123,11 +177,8 @@ def main(argv=None):
     start_epoch, T = 0, args.T
     if args.resume:
         logging.info('resuming from %s', args.resume)
-        ckpt = load_checkpoint(args.resume)
-        params = params_from_jax(ckpt['params'], device)
-        arch_params = arch_from_jax(ckpt['arch_params'], device)
-        mc_mask_dddict = ckpt['mc_mask_dddict']
-        start_epoch, T = int(ckpt['epoch']), float(ckpt['T'])
+        params, arch_params, mc_mask_dddict, start_epoch, T = load_resume(
+            args.resume, device)
     logging.info("param size = %fMB", sum(
         p.numel() for p in tree_leaves(params)) / 1e6)
 
@@ -165,17 +216,11 @@ def main(argv=None):
     if not args.resume:
         save_epoch(0, T)
 
-    spe = args.steps_per_epoch or 100
-
-    def batches(n_steps, seed):
-        for x, y in synthetic_loader(args.batch_size, n_steps,
-                                     args.num_classes, args.image_size,
-                                     seed=seed):
-            yield (torch.from_numpy(x).to(device, dtype),
-                   torch.from_numpy(y).to(device).long())
+    # uint8 batches are normalised on the card; float batches only cast
+    prep = device_normalizer(dtype)
 
     def val_batches(epoch):
-        return batches(max(spe // 4, 1), 10_000 + epoch)
+        return iter(DevicePrefetcher(val_iter(epoch), device))
 
     total_start = time.time()
     for epoch in range(start_epoch, args.epochs):
@@ -203,7 +248,9 @@ def main(argv=None):
         epoch_start = time.time()
         warm = epoch < args.warmup_epochs
         arch_it = None if warm else val_batches(epoch)
-        for step, (x, y) in enumerate(batches(spe, epoch)):
+        for step, (x, y) in enumerate(
+                DevicePrefetcher(train_iter(epoch), device)):
+            x = prep(x)
             log_alphas = arch_params["log_alphas"]
             idx_g = sample_gumbel_indices(log_alphas, gen)
             if warm:
@@ -221,8 +268,9 @@ def main(argv=None):
                         arch_it = val_batches(epoch)
                         xa_ya = next(arch_it)
                     arch_params, opt_a, ma = steps.arch_step(
-                        params, arch_params, opt_a, masks, *xa_ya, lat_vec,
-                        base_lat, T, gumbel_uniform(log_alphas.shape, gen))
+                        params, arch_params, opt_a, masks, prep(xa_ya[0]),
+                        xa_ya[1], lat_vec, base_lat, T,
+                        gumbel_uniform(log_alphas.shape, gen))
                     macc[3] += ma["loss_a"]
                     macc[4] += ma["loss_l"]
                     macc[6] += 1
@@ -249,13 +297,18 @@ def main(argv=None):
         logging.info('Epoch time: %ds', time.time() - epoch_start)
 
         if args.epochs - epoch < 5:
+            # the padded full set, every sample scored once
             vacc = torch.zeros(3, device=device)
-            for x, y in val_batches(epoch):
+            for batch in DevicePrefetcher(full_val_iter(epoch), device):
+                x, y = batch[0], batch[1]
+                n_valid = batch[2] if len(batch) > 2 else len(y)
+                wmask = torch.zeros(len(y), device=device)
+                wmask[:n_valid] = 1.0
                 idx_g = sample_gumbel_indices(arch_params["log_alphas"], gen)
-                m = steps.val_step(params, arch_params, masks, x, y, idx_g)
-                vacc += torch.stack([m["top1"] * len(y), m["top5"] * len(y),
-                                     torch.tensor(float(len(y)),
-                                                  device=device)])
+                m = steps.val_step(params, arch_params, masks, prep(x), y,
+                                   idx_g, wmask)
+                vacc += torch.stack([m["top1"], m["top5"],
+                                     torch.ones((), device=device)]) * n_valid
             va = vacc.tolist()
             logging.info('Val_acc %f', va[0] / max(va[2], 1.0))
             logging.info('Val_acc_top5 %f', va[1] / max(va[2], 1.0))

@@ -33,3 +33,12 @@ def nll(logits, targets):
 
 def cross_entropy(logits, targets):
     return nll(logits, targets).mean()
+
+
+def cross_entropy_label_smooth(logits, targets, num_classes, epsilon=0.1):
+    """Label-smoothed CE: sum over classes of the batch mean of
+    -((1 - eps) * onehot + eps / num_classes) * log_softmax, in f32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    onehot = torch.nn.functional.one_hot(targets.long(), num_classes).float()
+    smooth = (1.0 - epsilon) * onehot + epsilon / num_classes
+    return (-smooth * logp).mean(dim=0).sum()

@@ -8,9 +8,10 @@ baseline checkout, in turns, on one CUDA card.
 For every (H, C, stride, act) of the search's soft and sampled sites at
 batch 32, bf16, it prints one JSON line with both kernels' times taken in
 the order baseline, this, this, baseline: `device_ms` (CUDA events around
-the replay of a CUDA graph of 20 calls) and `ms` (events around 20
-back-to-back Python calls, host included), each as a list of the two
-turns, and the site's bound. The baseline's wrapper is imported from its
+the replay of a CUDA graph of 20 calls), `ms` (events around 20
+back-to-back Python calls, host included) and `host_us` (host clock per
+call, enqueue only), each as a list of the two turns, and the site's
+bound. The baseline's wrapper is imported from its
 own checkout under another package name, and builds its kernel there.
 The last line sums each version's device time over the 18 soft and the
 18 sampled launches of one forward (the site counts of
@@ -89,9 +90,10 @@ def main():
                     return mod.fused_dw_cuda(x, w, scale, offset, stride,
                                              act)
                 ms = cs._timed(torch, fn)
-                dev = cs._timings(torch, fn, flush)[0]
+                dev, _, host_us = cs._timings(torch, fn, flush)
                 row.setdefault(f"{ver}_ms", []).append(ms)
                 row.setdefault(f"{ver}_device_ms", []).append(dev)
+                row.setdefault(f"{ver}_host_us", []).append(host_us)
         for ver in versions:
             dev = row[f"{ver}_device_ms"]
             totals[(ver, path)] += row["per_forward"] * sum(dev) / len(dev)
