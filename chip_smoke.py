@@ -23,7 +23,7 @@ Phases, each printing one JSON line as soon as it ends:
    and the least time the card could take (`bound_ms`).
 3. search: the full-width MBConv supernet (batch 32, 224^2, 100 classes,
    bf16 activations, latency_pkl/latency_tpu.pkl) on synthetic data made on
-   the card: 2 warmup, 2 bi-sampling weight and 2 arch steps, one
+   the card: 2 warmup, 2 bi-sampling weight and 2 arch steps (eager), one
    parse + shrink/expand + mask rewrite, one val step. It checks finite
    losses, frozen masked channels, and exactly 18 kernel launches per
    sampled or soft forward. It writes only into a temporary directory.
@@ -34,7 +34,25 @@ Phases, each printing one JSON line as soon as it ends:
    transpose there would mean the NHWC hand-over is not free). The
    search's state is then saved as searched_model_01.pkl in the driver's
    format.
-5. eval: search -> parse -> retrain -> test -> fold on the card. The
+5. capture: the same net's warmup, weight and arch steps replayed from CUDA
+   graphs (search/compiled.py) against the eager steps from the same state,
+   inputs and draws, with cuDNN deterministic (bit for bit, else 1e-5);
+   both kernel strides among each graph's nodes (counted at capture) and
+   in the device time of a profiled captured weight and arch step; graph
+   build seconds and peak memory; eager and captured ms per step kind in
+   turns; the scanned iteration of K = 2 units over the captured weight
+   and arch steps against its eager loop (same generator seed: equal
+   draws).
+6. driver: `train_search` at full width on synthetic data, --scan_units 2,
+   3 epochs of 8 batches (one warmup; the second ends with shrink/expand,
+   the third steps on the rewritten masks), from CUDA graphs and with
+   --eager: every arch_params_NN.pkl and the final supernet agree (1e-5).
+7. lut: `make_lat_lut --mode measure` on its first two keys (a table that
+   load_lat_lookup reads, monotone); one block's chain time against the
+   profiler's device time for the same launches (not below it by more than
+   5%) beside the empty chain's time; --print_lat's measurement on
+   TF-NAS-A at batch 32 and 1.
+8. eval: search -> parse -> retrain -> test -> fold on the card. The
    port's parsing_model writes model.config from that checkpoint and
    EvalNetwork.from_config builds it. TF-NAS-A (configs/tfnas_a_tpu.config,
    1000 classes, 224^2) takes EVAL_STEPS timed train steps at batch 256,
@@ -502,6 +520,409 @@ def phase_search(torch, fused_dw, tmpdir):
     return launches, searched
 
 
+# -- phase 6 ------------------------------------------------------------------
+
+def _tree_err(torch, a, b):
+    """Largest |a - b| over the tensor leaves of two trees (inf when a
+    shape differs)."""
+    from tfnas_tpu_torch.search.compiled import leaves_of
+    err = 0.0
+    for x, y in zip(leaves_of(a), leaves_of(b)):
+        if x.shape != y.shape:
+            return math.inf
+        if x.numel():
+            err = max(err, (x.double() - y.double()).abs().max().item())
+    return err
+
+
+def _clone(torch, tree):
+    from tfnas_tpu_torch.search.compiled import _flatten, _unflatten
+    leaves = []
+    spec = _flatten(tree, leaves)
+    return _unflatten(spec, iter([l.clone() for l in leaves]))
+
+
+def _events_ms(torch, fn, n):
+    """ms per call from CUDA events around n calls (host and device)."""
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+_FUSED_STRIDE = (r"fused_dw_kernel(?:I\w*?Li([12])E|<[^,>]*,\s*"
+                 r"(?:\(int\))?([12]))")
+
+
+def _fused_stride(name):
+    """The stride template argument of a fused kernel's (mangled or
+    demangled) name."""
+    import re
+    m = re.search(_FUSED_STRIDE, name)
+    return int(m.group(1) or m.group(2)) if m else 0
+
+
+def phase_capture(torch, fused_dw, tmpdir):
+    """Captured warmup, weight and arch steps against the eager steps from
+    the same state, inputs and draws (cuDNN deterministic); the K-unit
+    scanned iteration over the captured steps against its eager loop;
+    build times, peak memory, eager and captured ms in turns, fused kernel
+    nodes, and profiles of one captured weight and arch step. Returns the
+    per-graph fused kernel nodes."""
+    from tfnas_tpu_torch.cost.lut import lat_vectors_for_mc, load_lat_lookup
+    from tfnas_tpu_torch.data.synthetic import device_batches
+    from tfnas_tpu_torch.models import search_space as ss
+    from tfnas_tpu_torch.models.supernet import SuperNetwork
+    from tfnas_tpu_torch.search.bisample import (gumbel_uniform,
+                                                 sample_gumbel_indices,
+                                                 sample_random_excluding)
+    from tfnas_tpu_torch.search.compiled import GraphFamily
+    from tfnas_tpu_torch.search.parser import get_mc_num_dddict
+    from tfnas_tpu_torch.search.train_step import (adam_init,
+                                                   make_scanned_search_iter,
+                                                   make_search_steps,
+                                                   zeros_like_tree)
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    dev = torch.device("cuda")
+    here = os.path.dirname(os.path.abspath(__file__))
+    lut = load_lat_lookup(os.path.join(here, "latency_pkl",
+                                       "latency_tpu.pkl"))
+    net = SuperNetwork(100)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params, arch = net.init(gen)
+    mc_mask = ss.build_mc_mask_dddict()
+    kw = dict(num_classes=100, lambda_lat=0.1, target_lat=TARGET_LAT)
+    fam = GraphFamily(dev)
+    state = fam.adopt({
+        "params": params, "arch": arch, "mom": zeros_like_tree(params),
+        "opt": adam_init(arch), "masks": net.device_masks(mc_mask, dev),
+        "umasks": net.update_masks(params, mc_mask),
+        "lat": torch.from_numpy(lat_vectors_for_mc(
+            lut, get_mc_num_dddict(mc_mask))).to(dev),
+        "lr": torch.tensor(0.025, device=dev),
+        "T": torch.tensor(5.0, device=dev),
+        "base": torch.tensor(float(lut["base"]), device=dev)})
+    del params, arch
+    eager = make_search_steps(net, **kw)
+    capt = make_search_steps(net, capture=True, family=fam, **kw)
+    data = device_batches(BATCH, 12, gen, 100, 224, torch.bfloat16)
+    batches = [next(data) for _ in range(6)]
+
+    def call(steps, kind, st, i):
+        x, y = batches[i]
+        la = st["arch"]["log_alphas"]
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        if kind == "arch":
+            u = gumbel_uniform(la.shape, g)
+            a, o, m = steps.arch_step(st["params"], st["arch"], st["opt"],
+                                      st["masks"], x, y, st["lat"],
+                                      st["base"], st["T"], u)
+            return {"arch": a, "opt": o}, m
+        ig = sample_gumbel_indices(la, g)
+        if kind == "warmup":
+            p, mo, m = steps.warmup_step(st["params"], st["arch"], st["mom"],
+                                         st["masks"], st["umasks"], x, y,
+                                         st["lr"], ig)
+        else:
+            ir = sample_random_excluding(ig, 8, g)
+            p, mo, m = steps.weight_step(st["params"], st["arch"], st["mom"],
+                                         st["masks"], st["umasks"], x, y,
+                                         st["lr"], ig, ir)
+        return {"params": p, "mom": mo}, m
+
+    # peak memory of an eager weight and arch step above the state
+    snap = _clone(torch, state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    for kind in ("weight", "arch"):
+        snap.update(call(eager, kind, snap, 0)[0])
+    torch.cuda.synchronize()
+    peak_eager = torch.cuda.max_memory_allocated() - base_mem
+    del snap
+    torch.cuda.reset_peak_memory_stats()
+    failures = []
+    for i, kind in enumerate(("warmup", "weight", "arch", "weight", "arch")):
+        snap = _clone(torch, state)
+        want, wm = call(eager, kind, snap, i)
+        del snap
+        got, gm = call(capt, kind, state, i)
+        errs = {k: _tree_err(torch, got[k], want[k]) for k in got}
+        errs["metrics"] = _tree_err(torch, gm, wm)
+        worst = max(errs.values())
+        rec = {"phase": "capture", "step": kind, "replay": i,
+               "max_abs_err": errs, "bit_identical": worst == 0.0,
+               "tol": 1e-5}
+        emit(rec)
+        if not worst <= 1e-5:
+            failures.append(rec)
+        for k, v in got.items():  # carry the captured state on
+            state[k] = v
+    peak_capt = torch.cuda.max_memory_allocated() - base_mem
+    graphs = {g.name: g for g in fam.graphs}
+    nodes = {n: g.nodes for n, g in graphs.items()}
+    emit({"phase": "capture", "step": "graphs",
+          "build_s": {n: g.build_s for n, g in graphs.items()},
+          "fused_nodes_by_stride": nodes,
+          "peak_mem_GB_eager_steps": peak_eager / 1e9,
+          "peak_mem_GB_captures_and_checks": peak_capt / 1e9,
+          "reserved_GB": torch.cuda.memory_reserved() / 1e9})
+    for name in ("warmup_step", "weight_step", "arch_step"):
+        if not (nodes[name].get(1) and nodes[name].get(2)):
+            failures.append(f"{name}: fused nodes {nodes[name]}")
+
+    # eager and captured step ms, in turns (eager, captured, captured, eager)
+    times = collections.defaultdict(list)
+    est = _clone(torch, state)
+    for kind in ("warmup", "weight", "arch"):
+        for mode in ("eager", "captured", "captured", "eager"):
+            st = est if mode == "eager" else state
+            steps = eager if mode == "eager" else capt
+
+            def once():
+                out, _ = call(steps, kind, st, 5)
+                st.update(out)
+            once()
+            times[(kind, mode)].append(_events_ms(torch, once, 3))
+    emit({"phase": "capture", "step": "times_ms",
+          **{f"{k}_{m}": v for (k, m), v in times.items()}})
+    del est
+
+    # the K-unit scanned iteration, eager and over the captured weight and
+    # arch steps, from the same state and generator seed
+    K = 2
+    xw = torch.stack([b[0] for b in batches[:2 * K]]).reshape(
+        K, 2, *batches[0][0].shape)
+    yw = torch.stack([b[1] for b in batches[:2 * K]]).reshape(K, 2, -1)
+    xa = torch.stack([b[0] for b in batches[2 * K:3 * K]])
+    ya = torch.stack([b[1] for b in batches[2 * K:3 * K]])
+    results, unit_ms = {}, collections.defaultdict(list)
+    iters = {"eager": make_scanned_search_iter(net, steps=eager, **kw),
+             "captured": make_scanned_search_iter(net, steps=capt, **kw)}
+    start = _clone(torch, state)
+    for name, run in iters.items():
+        st = _clone(torch, start)
+        g = torch.Generator(device=dev).manual_seed(7)
+        t = time.perf_counter()
+        out = run(st["params"], st["mom"], st["arch"], st["opt"],
+                  st["masks"], st["umasks"], xw, yw, xa, ya, st["lr"],
+                  st["T"], st["lat"], st["base"], g)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        results[name] = _clone(torch, out)
+        unit_ms[name].append(first_s * 1e3)
+
+        def again():
+            o = run(st["params"], st["mom"], st["arch"], st["opt"],
+                    st["masks"], st["umasks"], xw, yw, xa, ya, st["lr"],
+                    st["T"], st["lat"], st["base"], g)
+            st.update(params=o[0], mom=o[1], arch=o[2], opt=o[3])
+        st.update(params=out[0], mom=out[1], arch=out[2], opt=out[3])
+        unit_ms[name].append(_events_ms(torch, again, 2) / K)
+        del st, out
+    errs = {"captured": _tree_err(torch, results["captured"],
+                                  results["eager"])}
+    draws_equal = all(
+        torch.equal(results[n][4][k], results["eager"][4][k])
+        for n in errs for k in ("idx_g", "idx_r")) and all(
+        torch.equal(results[n][5]["gumbel_u"], results["eager"][5][
+            "gumbel_u"]) for n in errs)
+    rec = {"phase": "capture", "step": "scanned", "K": K,
+           "first_call_ms_then_ms_per_unit": dict(unit_ms),
+           "max_abs_err_vs_eager": errs, "draws_equal": draws_equal,
+           "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9}
+    emit(rec)
+    if not (max(errs.values()) <= 1e-5 and draws_equal):
+        failures.append(rec)
+    del results, start
+
+    # one captured weight and arch step under the profiler
+    profiles = {}
+    for kind in ("weight", "arch"):
+        trace = os.path.join(tmpdir, f"trace_captured_{kind}.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("step"):
+                out, _ = call(capt, kind, state, 5)
+                torch.cuda.synchronize()
+        state.update(out)
+        prof.export_chrome_trace(trace)
+        profiles[kind] = _profile_summary(f"captured_{kind}", trace)
+        emit(dict(profiles[kind], phase="capture_profile"))
+        os.remove(trace)
+        by_stride = profiles[kind]["fused_dw_ms_by_stride"]
+        if not (by_stride.get(1) and by_stride.get(2)):
+            failures.append(f"captured {kind} step: fused kernel device ms "
+                            f"by stride {by_stride}")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    del state, capt, fam
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"captured steps disagree: {failures}")
+    return nodes, profiles, times
+
+
+def phase_driver(torch, tmpdir):
+    """The driver at full width on synthetic data, --scan_units 2, three
+    epochs (one warmup; the second ends with shrink/expand and the third
+    steps on the rewritten masks), from CUDA graphs and eagerly: every
+    arch_params_NN.pkl and the final supernet must agree."""
+    from tfnas_tpu_torch import train_search
+    here = os.path.dirname(os.path.abspath(__file__))
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    from tfnas_tpu_torch.kernels import fused_dw
+    runs, counts = {}, {}
+    for mode in ("captured", "eager"):
+        fused_dw.reset_launches()
+        t = time.perf_counter()
+        run = train_search.main([
+            "--synthetic", "--epochs", "3", "--warmup_epochs", "1",
+            "--steps_per_epoch", "8", "--scan_units", "2", "--save",
+            os.path.join(tmpdir, f"driver_{mode}"), "--save_freq", "100",
+            "--print_freq", "4", "--target_lat", str(TARGET_LAT),
+            "--lookup_path", os.path.join(here, "latency_pkl",
+                                          "latency_tpu.pkl")]
+            + (["--eager"] if mode == "eager" else []))
+        runs[mode] = (run, time.perf_counter() - t)
+        counts[mode] = {"launches": dict(fused_dw.launches),
+                        "captured": dict(fused_dw.captured),
+                        "replayed": dict(fused_dw.replayed)}
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    errs, identical = {}, True
+    import numpy as np
+    for name in sorted(os.listdir(runs["eager"][0])):
+        if not name.endswith(".pkl"):
+            continue
+        a = pickle.load(open(os.path.join(runs["captured"][0], name), "rb"))
+        b = pickle.load(open(os.path.join(runs["eager"][0], name), "rb"))
+        identical &= (open(os.path.join(runs["captured"][0], name),
+                           "rb").read()
+                      == open(os.path.join(runs["eager"][0], name),
+                              "rb").read())
+
+        def walk(x, y):
+            if isinstance(x, dict):
+                return max([walk(x[k], y[k]) for k in x] or [0.0])
+            if isinstance(x, np.ndarray) and x.dtype.kind == "f":
+                return float(np.abs(x.astype(np.float64) - y).max()) \
+                    if x.size else 0.0
+            return 0.0 if np.array_equal(x, y) else math.inf
+        errs[name] = walk(a, b)
+    rec = {"phase": "driver", "scan_units": 2, "epochs": 3,
+           "seconds": {m: r[1] for m, r in runs.items()},
+           "fused_dw_counts": counts,
+           "max_abs_err": errs, "bytes_identical": identical, "tol": 1e-5}
+    emit(rec)
+    for mode in runs:
+        shutil.rmtree(runs[mode][0])
+    if not max(errs.values()) <= 1e-5:
+        raise AssertionError(f"captured driver run disagrees: {rec}")
+    if not all(counts["captured"]["replayed"].values()):
+        raise AssertionError(f"the captured driver run replayed no fused "
+                             f"kernel of some stride: {counts}")
+    return counts["captured"]["replayed"]
+
+
+def phase_lut(torch, tmpdir):
+    """make_lat_lut in measure mode on its first two keys; for one
+    block, the measured chain time against the profiler's device time of
+    the same launches, and the empty chain's time; --print_lat's
+    measurement on TF-NAS-A."""
+    import contextlib
+    import io
+    from tfnas_tpu_torch import make_lat_lut, parsing_model
+    from tfnas_tpu_torch.cost.lut import load_lat_lookup
+    from tfnas_tpu_torch.cost.measure import Chain, measure_latency_in_ms
+    from tfnas_tpu_torch.models.eval_net import EvalNetwork
+    from tfnas_tpu_torch.ops.layers import MBInvertedResBlock
+    from tfnas_tpu_torch.search.train_step import tree_map
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    dev = torch.device("cuda")
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmpdir, "lut.pkl")
+    t = time.perf_counter()
+    make_lat_lut.main(["--mode", "measure", "--max_keys", "2",
+                       "--stride_points", "3", "--output", out])
+    build_s = time.perf_counter() - t
+    lut = load_lat_lookup(out)
+    keys = [k for k in lut if k != "base"]
+    ok = (len(keys) == 2 and lut["base"] > 0 and all(
+        all(math.isfinite(v) and v > 0 for v in lut[k].values())
+        and list(lut[k].values()) == sorted(lut[k].values()) for k in keys))
+
+    # one block at its widest: the chain's time per call against the
+    # device time the profiler sees for the same launches
+    key, res, cin, se, cout, k, stride, act, max_mc = \
+        make_lat_lut.site_keys()[0]
+    block = MBInvertedResBlock(cin, max_mc, se, cout, kernel_size=k,
+                               stride=stride, affine=True, act_func=act)
+    params, state = block.init(torch.Generator(device=dev).manual_seed(0))
+    params = tree_map(lambda v: v.to(torch.bfloat16), params)
+    x = torch.randn((BATCH, cin, res, res), device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    def fwd(p, s, xx):
+        return block.apply(p, s, xx, training=False)[0]
+    iters = 50
+    chain = Chain(fwd, (params, state, x), iters)
+    chain.run()
+    chain_ms = float(sorted(chain.time_ms(5))[2])
+    trace = os.path.join(tmpdir, "trace_chain.json")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("step"):
+            chain.run()
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(trace)
+    summary = _profile_summary("lut_chain", trace)
+    os.remove(trace)
+    device_ms = summary["device_busy_ms"] / iters
+    empty_ms = measure_latency_in_ms(lambda xx: xx, (x,), 10, iters)
+    del chain
+
+    with open(os.path.join(here, "configs", "tfnas_a_tpu.config")) as f:
+        tfnas_a = EvalNetwork.from_config(1000, json.load(f))
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        lat = parsing_model.print_latency(
+            tfnas_a, load_lat_lookup(os.path.join(
+                here, "latency_pkl", "latency_tpu.pkl")), 224, dev)
+    printed = buf.getvalue().strip().splitlines()
+    rec = {"phase": "lut", "build_s": build_s, "keys": keys,
+           "base_ms": lut["base"],
+           "key_ms_range": {k: [min(lut[k].values()), max(lut[k].values())]
+                            for k in keys},
+           "block": key, "mc": max_mc, "chain_ms_per_call": chain_ms,
+           "profiler_device_ms_per_call": device_ms,
+           "chain_over_device": chain_ms / device_ms,
+           "empty_chain_ms_per_call": empty_ms,
+           "chain_kernels_per_call": summary["kernels"] / iters,
+           "tfnas_a_print_lat": printed,
+           "tfnas_a_ms": {f"bs{b}": v for b, v in lat.items()},
+           "print_lat_s": time.perf_counter() - t}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"measured LUT is malformed: {rec}")
+    if not chain_ms >= 0.95 * device_ms:
+        raise AssertionError(f"chain time below the device time: {rec}")
+    if not (len(printed) == 3 and all(math.isfinite(v) and v > 0
+                                      for v in lat.values())):
+        raise AssertionError(f"--print_lat on TF-NAS-A: {printed}")
+
+
 # -- phase 5 ------------------------------------------------------------------
 
 def _u8_batches(np, n, seed, valid=None):
@@ -756,6 +1177,9 @@ def _profile_summary(step, path):
         count[e["name"]] += 1
     fused = [i for i, e in enumerate(kernels) if "fused_dw" in e["name"]]
     fused_us = sum(kernels[i]["dur"] for i in fused)
+    by_stride = collections.Counter()
+    for i in fused:
+        by_stride[_fused_stride(kernels[i]["name"])] += kernels[i]["dur"]
     # the kernels launched just before and after each fused launch, with
     # their mean time beside the fused kernel's (a copy of x would take a
     # good part of it; a copy of the [5, 5, C] taps a few us)
@@ -772,6 +1196,8 @@ def _profile_summary(step, path):
             "window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / (t1 - t0),
             "kernels": len(kernels), "fused_dw_launches": len(fused),
+            "fused_dw_ms_by_stride": {k: v / 1e3
+                                      for k, v in by_stride.items()},
             "fused_dw_ms": fused_us / 1e3,
             "fused_dw_share": fused_us / (t1 - t0),
             "top_kernels": [{"name": n[:160], "ms": t / 1e3,
@@ -798,6 +1224,9 @@ def main():
     per_stride, times = phase_kernel(torch, fused_dw, tss)
     with tempfile.TemporaryDirectory() as tmpdir:
         launches, searched = phase_search(torch, fused_dw, tmpdir)
+        nodes, cprof, ctimes = phase_capture(torch, fused_dw, tmpdir)
+        replayed = phase_driver(torch, tmpdir)
+        phase_lut(torch, tmpdir)
         fused_dw.reset_launches()  # the eval path's own count
         phase_eval(torch, tmpdir, searched)
         eval_launches = sum(fused_dw.launches.values())
@@ -831,7 +1260,17 @@ def main():
             "host_us": row["host_us"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            "library_device_ms": row["library_device_ms"]})
+            "library_device_ms": row["library_device_ms"],
+            # the captured steps: kernel nodes per replayed step (counted at
+            # capture), the driver run's replayed launches, and the kernel's
+            # device time inside one profiled captured step
+            "launches_per_replayed_step": {
+                k: nodes[f"{k}_step"][stride]
+                for k in ("warmup", "weight", "arch")},
+            "replayed_launches_driver": replayed[stride],
+            "captured_step_device_ms": {
+                k: cprof[k]["fused_dw_ms_by_stride"].get(stride, 0.0)
+                for k in ("weight", "arch")}})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

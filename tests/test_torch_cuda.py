@@ -7,10 +7,16 @@ so they run on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
+Also the search steps replayed from CUDA graphs (search/compiled.py)
+against the eager steps, the scanned iteration's draws and result captured
+and eager, the step path without a host sync, the driver loop's buffer rewrites at epoch
+boundaries, and the latency chain (cost/measure.py).
+
 Tolerances: f32 with TF32 off, 2e-4 for y (summation order) and 1e-3 for
 the sums; bf16, 2e-2 (one bf16 rounding of y, 2^-8 relative, either way);
 the search steps and the eval forward on the card against the CPU 1e-4,
-one eval train step and the folds 1e-5.
+one eval train step and the folds 1e-5; captured against eager steps bit
+for bit (cuDNN deterministic), else 1e-5.
 """
 
 import pytest
@@ -298,3 +304,247 @@ def test_prefetcher_and_normalizer_on_card(cuda):
         assert torch.equal(x.cpu(), torch.from_numpy(bx))
         want = device_normalizer(torch.bfloat16)(torch.from_numpy(bx))
         torch.testing.assert_close(prep(x).cpu(), want, rtol=0, atol=0)
+
+
+# -- captured steps -----------------------------------------------------------
+
+def _tiny_state(dev, seed=0):
+    from tfnas_tpu_torch.search.train_step import adam_init, zeros_like_tree
+    net = SuperNetwork(10, space=tss.tiny_space(32))
+    params, arch = net.init(torch.Generator().manual_seed(seed))
+    params, arch = _to(params, dev), _to(arch, dev)
+    mc = net.ss.build_mc_mask_dddict()
+    g = torch.Generator().manual_seed(seed + 1)
+    state = {"params": params, "arch": arch, "mom": zeros_like_tree(params),
+             "opt": adam_init(arch), "masks": net.device_masks(mc, dev),
+             "umasks": net.update_masks(params, mc),
+             "lat": (torch.rand((3, 8), generator=g) * 0.01).to(dev),
+             "lr": torch.tensor(0.025, device=dev),
+             "T": torch.tensor(5.0, device=dev),
+             "base": torch.tensor(0.004, device=dev)}
+    data = [(torch.randn((4, 32, 32, 3), generator=g).to(dev),
+             torch.randint(0, 10, (4,), generator=g).to(dev))
+            for _ in range(6)]
+    return net, state, data
+
+
+def _step(steps, kind, st, x, y, gen):
+    from tfnas_tpu_torch.search.bisample import (gumbel_uniform,
+                                                 sample_gumbel_indices,
+                                                 sample_random_excluding)
+    la = st["arch"]["log_alphas"]
+    if kind == "arch":
+        a, o, m = steps.arch_step(st["params"], st["arch"], st["opt"],
+                                  st["masks"], x, y, st["lat"], st["base"],
+                                  st["T"], gumbel_uniform(la.shape, gen))
+        return {"arch": a, "opt": o}, m
+    ig = sample_gumbel_indices(la, gen)
+    if kind == "warmup":
+        p, mo, m = steps.warmup_step(st["params"], st["arch"], st["mom"],
+                                     st["masks"], st["umasks"], x, y,
+                                     st["lr"], ig)
+    else:
+        p, mo, m = steps.weight_step(st["params"], st["arch"], st["mom"],
+                                     st["masks"], st["umasks"], x, y,
+                                     st["lr"], ig,
+                                     sample_random_excluding(ig, 8, gen))
+    return {"params": p, "mom": mo}, m
+
+
+def _assert_trees_equal(a, b):
+    from tfnas_tpu_torch.search.compiled import leaves_of
+    la, lb = leaves_of(a), leaves_of(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def deterministic(cuda):
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    yield cuda
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+
+
+def test_captured_steps_match_eager(deterministic):
+    """Warmup, weight and arch steps replayed from CUDA graphs equal the
+    eager steps from the same state, batch and draws, over two replays of
+    each; each graph holds the kernel at both strides (the tiny space has
+    sites of each) and a replay adds its nodes to the replayed count."""
+    from tfnas_tpu_torch.search.compiled import GraphFamily
+    from tfnas_tpu_torch.search.train_step import make_search_steps
+    dev = deterministic
+    net, st, data = _tiny_state(dev)
+    kw = dict(num_classes=10, lambda_lat=0.1, target_lat=0.02)
+    eager = make_search_steps(net, **kw)
+    fam = GraphFamily(dev)
+    capt = make_search_steps(net, capture=True, family=fam, **kw)
+    est = dict(st)
+    cst = fam.adopt(dict(st))
+    for i, kind in enumerate(("warmup", "weight", "arch", "warmup",
+                              "weight", "arch")):
+        x, y = data[i]
+        want, wm = _step(eager, kind, est, x, y,
+                         torch.Generator(device=dev).manual_seed(i))
+        before = dict(tfused.replayed)
+        got, gm = _step(capt, kind, cst, x, y,
+                        torch.Generator(device=dev).manual_seed(i))
+        _assert_trees_equal(got, want)
+        _assert_trees_equal(gm, wm)
+        est.update(want)
+        cst.update(got)
+        graph = {g.name: g for g in fam.graphs}[f"{kind}_step"]
+        assert all(graph.nodes.values()) and tfused.replayed == {
+            s: before[s] + n for s, n in graph.nodes.items()}
+    assert [g.name for g in fam.graphs] == ["warmup_step", "weight_step",
+                                            "arch_step"]
+    assert all(g.replays == 2 for g in fam.graphs)
+
+
+def test_captured_draws_match_eager(deterministic):
+    """The scanned iteration over the captured weight and arch steps draws
+    from the caller's generator between replays: the same generator state
+    gives the same draws and the same result as the eager loop over two
+    calls of K units, the generator ends where eager leaves it, and the
+    units replay the two step graphs and capture no other."""
+    from tfnas_tpu_torch.search.compiled import GraphFamily
+    from tfnas_tpu_torch.search.train_step import make_scanned_search_iter
+    dev = deterministic
+    net, st, data = _tiny_state(dev, seed=3)
+    K = 2
+    xw = torch.stack([d[0] for d in data[:4]]).reshape(K, 2, 4, 32, 32, 3)
+    yw = torch.stack([d[1] for d in data[:4]]).reshape(K, 2, 4)
+    xa = torch.stack([d[0] for d in data[4:6]])
+    ya = torch.stack([d[1] for d in data[4:6]])
+    kw = dict(num_classes=10, lambda_lat=0.1, target_lat=0.02)
+    outs, gens = {}, {}
+    fam = GraphFamily(dev)
+    for name, kwargs in (("eager", {}),
+                         ("captured", dict(capture=True, family=fam))):
+        run = make_scanned_search_iter(net, **kwargs, **kw)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        out = None
+        for _ in range(2):
+            s = st if out is None else dict(st, params=out[0], mom=out[1],
+                                            arch=out[2], opt=out[3])
+            out = run(s["params"], s["mom"], s["arch"], s["opt"], s["masks"],
+                      s["umasks"], xw, yw, xa, ya, s["lr"], s["T"], s["lat"],
+                      s["base"], gen)
+        outs[name] = out
+        gens[name] = torch.rand(4, generator=gen, device=dev)
+    for k in ("idx_g", "idx_r"):
+        assert torch.equal(outs["captured"][4][k], outs["eager"][4][k])
+    assert torch.equal(outs["captured"][5]["gumbel_u"],
+                       outs["eager"][5]["gumbel_u"])
+    _assert_trees_equal(outs["captured"][:4], outs["eager"][:4])
+    _assert_trees_equal(outs["captured"][4:], outs["eager"][4:])
+    assert torch.equal(gens["captured"], gens["eager"])
+    assert [(g.name, g.replays) for g in fam.graphs] == [
+        ("weight_step", 2 * K * 2), ("arch_step", 2 * K)]
+
+
+def test_step_path_never_syncs(cuda):
+    """One eager warmup, weight and arch step with their draws, after a
+    first call has filled the first-use caches, under
+    torch.cuda.set_sync_debug_mode('error'): no .item(), no pageable copy,
+    nothing that waits for the card."""
+    from tfnas_tpu_torch.search.train_step import make_search_steps
+    net, st, data = _tiny_state(cuda, seed=5)
+    steps = make_search_steps(net, num_classes=10, lambda_lat=0.1,
+                              target_lat=0.02)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for kind in ("warmup", "weight", "arch"):
+        st.update(_step(steps, kind, st, *data[0], gen)[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for kind in ("warmup", "weight", "arch"):
+            st.update(_step(steps, kind, st, *data[1], gen)[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_epoch_boundaries_rewrite_graph_buffers(deterministic):
+    """The driver loop (train_search.Search) over three epochs of the tiny
+    space, captured and eager from the same seed: a warmup epoch and two
+    search epochs, the second on the masks, latency vector, lr and T the
+    first epoch's end wrote into the graphs' buffers, with the optimiser
+    state zeroed in place. Both runs agree after every epoch, and the
+    captured one rebinds none of the buffers its graphs read."""
+    import numpy as np
+    from tfnas_tpu_torch import train_search as ts
+    from tfnas_tpu_torch.cost.lut import build_space_analytic_lut
+    from tfnas_tpu_torch.search.compiled import GraphFamily, leaves_of
+    dev = deterministic
+    space = tss.tiny_space(32)
+    lut = build_space_analytic_lut(space)
+    g = torch.Generator().manual_seed(8)
+    batches = [[(torch.randn((4, 32, 32, 3), generator=g).to(dev),
+                 torch.randint(0, 10, (4,), generator=g).to(dev))
+                for _ in range(5)] for _ in range(3)]
+    arch_b = [(torch.randn((4, 32, 32, 3), generator=g).to(dev),
+               torch.randint(0, 10, (4,), generator=g).to(dev))
+              for _ in range(2)]
+    kw = dict(num_classes=10, lambda_lat=0.5, target_lat=0.02)
+    results = {}
+    for mode in ("eager", "captured"):
+        net = SuperNetwork(10, space=space)
+        params, arch = net.init(torch.Generator().manual_seed(2))
+        fam = GraphFamily(dev) if mode == "captured" else None
+        search = ts.Search(net, space, lut, _to(params, dev), _to(arch, dev),
+                           space.build_mc_mask_dddict(), dev,
+                           step_kwargs=kw, family=fam, scan_units=2)
+        draws = ts.GeneratorDraws(torch.Generator(device=dev).manual_seed(4))
+        T, held, per_epoch = 5.0, None, []
+        for epoch in range(3):
+            search.begin_epoch(0.025 * (1 - epoch / 3), T)
+            if mode == "captured" and held is None:
+                held = [id(t) for t in leaves_of(
+                    [search.masks, search.update_masks, search.lat_vec,
+                     search.mom, search.opt_a, search.lr, search.T])]
+            search.train_epoch(batches[epoch], lambda: iter(arch_b), draws,
+                               epoch == 0, lambda x: x)
+            if epoch:
+                T *= 0.96
+                search.end_epoch(0.015)
+            per_epoch.append((_to(search.params, "cpu"),
+                              _to(search.arch_params, "cpu"),
+                              {s: {b: {o: np.asarray(m).copy()
+                                       for o, m in d.items()}
+                                   for b, d in sd.items()}
+                               for s, sd in search.mc_mask_dddict.items()}))
+        if mode == "captured":
+            assert held == [id(t) for t in leaves_of(
+                [search.masks, search.update_masks, search.lat_vec,
+                 search.mom, search.opt_a, search.lr, search.T])]
+            assert [g.name for g in fam.graphs] == [
+                "warmup_step", "weight_step", "arch_step"]
+        results[mode] = per_epoch
+    for (pe, ae, me), (pc, ac, mc) in zip(results["eager"],
+                                          results["captured"]):
+        _assert_trees_equal(pc, pe)
+        _assert_trees_equal(ac, ae)
+        for s in me:
+            for b in me[s]:
+                for o in me[s][b]:
+                    assert np.array_equal(me[s][b][o], mc[s][b][o])
+
+
+def test_latency_chain_on_card(cuda):
+    """The chain is one CUDA graph: its time per call is positive and at
+    least the empty chain's, and each call still feeds the next."""
+    from tfnas_tpu_torch.cost.measure import Chain, measure_latency_in_ms
+    x = torch.ones(8, device=cuda)
+    chain = Chain(lambda v: v * 1e30, (x,), iters=4)
+    assert chain.graph is not None
+    chain.run()
+    torch.cuda.synchronize()
+    assert chain.x[0].item() == pytest.approx(4.0)
+    w = torch.randn(512, 512, device=cuda)
+    ms = measure_latency_in_ms(lambda w, v: v @ w, (w, torch.randn(
+        256, 512, device=cuda)), warmup=5, iters=20)
+    empty = measure_latency_in_ms(lambda v: v, (x,), warmup=5, iters=20)
+    assert 0 < empty <= ms

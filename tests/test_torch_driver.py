@@ -35,7 +35,8 @@ def test_package_imports_no_jax():
         "assert not bad, bad\n"
         "for m in ('kernels.fused_dw', 'runtime.native', 'models.eval_net',\n"
         "          'models.folding', 'parallel.train_dp', 'cost.flops',\n"
-        "          'data.imagelist', 'data.transforms'):\n"
+        "          'data.imagelist', 'data.transforms', 'cost.measure',\n"
+        "          'search.compiled', 'make_lat_lut', 'bench'):\n"
         "    assert 'tfnas_tpu_torch.' + m in sys.modules, m\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)

@@ -5,9 +5,11 @@ the two packages' retrain and test drivers (metrics at 1e-4, checkpoint
 bytes exact); a padded real-image validation; and --resume from a
 JAX-written search checkpoint, one injected step on, at 1e-5."""
 
+import functools
 import glob
 import importlib.util
 import json
+import math
 import os
 import pickle
 import re
@@ -78,7 +80,12 @@ def _repo_files():
     return out
 
 
-def test_parsing_model_writes_the_jax_config_bytes(tmp_path, capsys):
+def test_parsing_model_writes_the_jax_config_bytes(tmp_path, capsys,
+                                                  monkeypatch):
+    # --print_lat's chains, short: their timing is cost/measure.py's test
+    monkeypatch.setattr(tparse, "measure_model_latency_in_ms",
+                        functools.partial(tparse.measure_model_latency_in_ms,
+                                          warmup=1, iters=2))
     jax_cfg, port_cfg = tmp_path / "jax.config", tmp_path / "port.config"
     args = ["--model_path", PARETO, "--space", "tiny", "--image_size", "32",
             "--num_classes", "10"]
@@ -98,7 +105,10 @@ def test_parsing_model_writes_the_jax_config_bytes(tmp_path, capsys):
         "{:.4f}".format(want)
     assert model.get_lookup_latency(tlut.build_space_analytic_lut(
         tss.tiny_space(32)), 32) == want
-    assert "not yet ported" in tout
+    # the measured latency of the folded bf16 net, at batch 32 and 1
+    for bs in (32, 1):
+        ms = float(re.search(rf"Lat_CPU bs={bs}:\s*(\S+)ms", tout).group(1))
+        assert math.isfinite(ms) and ms > 0
     with pytest.raises(SystemExit, match="hybrid"):
         tparse.main(["--model_path", PARETO, "--space", "hybrid",
                      "--device", "cpu"])

@@ -42,6 +42,13 @@ def load_lat_lookup(path, clamp_negative=True):
     return lut
 
 
+def save_lat_lookup(lut, path):
+    """Pickle a LUT with the default protocol: the same bytes as the JAX
+    package's save_lat_lookup for the same table."""
+    with open(path, "wb") as f:
+        pickle.dump(lut, f)
+
+
 def lat_vectors_for_mc(lat_lookup, mc_num_dddict, key_dddict=None,
                        num_ops=None):
     """float32 [TOTAL_BLOCKS, NUM_OPS]: entry (b, o) is the latency of op o

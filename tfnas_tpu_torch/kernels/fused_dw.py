@@ -12,9 +12,12 @@ at first use, loaded with ctypes); on a CPU tensor it runs `fused_dw_plain`,
 the same math in plain PyTorch. A CUDA tensor never falls back to the plain
 version: the kernel launches or the call raises. `launches[stride]` counts
 kernel launches at each stride (stride 1 replaces the TPU's `_kernel`,
-stride 2 its `_kernel_s2`). The kernel's static work decomposition is
-chosen here by `plan` and passed to it; `work_items` lists it in the
-kernel's order, for the CPU tests.
+stride 2 its `_kernel_s2`); a call on a stream that is being captured into
+a CUDA graph records a kernel node instead and counts in
+`captured[stride]`, and `replayed[stride]` counts the nodes that replays of
+captured graphs ran (search/compiled.py adds them per replay). The
+kernel's static work decomposition is chosen here by `plan` and passed to
+it; `work_items` lists it in the kernel's order, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -57,14 +60,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel launches by stride since import (or the last reset); plain-version
 # calls on CPU tensors do not count
 launches = {1: 0, 2: 0}
+# kernel nodes recorded into CUDA graphs under capture, and run by replays
+captured = {1: 0, 2: 0}
+replayed = {1: 0, 2: 0}
 # how the loaded library was obtained: {"path", "seconds", "log"}
 build_info = None
 _lib = None
 
 
 def reset_launches():
-    for stride in launches:
-        launches[stride] = 0
+    for counts in (launches, captured, replayed):
+        for stride in counts:
+            counts[stride] = 0
 
 
 def _nvcc():
@@ -229,7 +236,8 @@ def fused_dw_cuda(x, w, scale, offset, stride, act):
     if rc != 0:
         raise RuntimeError(f"fused_dw kernel launch failed with CUDA error "
                            f"{rc}")
-    launches[stride] += 1
+    (captured if torch.cuda.is_current_stream_capturing()
+     else launches)[stride] += 1
     s, q = part.sum(dim=1).unbind(0)  # the bpg partial rows, in order
     return y, s, q
 

@@ -6,8 +6,8 @@ repository's parsing_model.py).
 
 Argmax of the ops and depths of the checkpoint's arch parameters, widths
 from its masks; writes the model.config JSON and prints Params and FLOPs,
-and with --print_lat the LUT latency. The latency measured on the card
-belongs to the cost model, which is not yet ported.
+and with --print_lat the LUT latency and the latency of the BN-folded bf16
+network measured on the device (cost/measure.py) at batch 32 and batch 1.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 
 from .cost import (build_space_analytic_lut, calculate_FLOPs_in_M,
                    count_parameters_in_MB, load_lat_lookup)
+from .cost.measure import measure_model_latency_in_ms
 from .device import resolve_device
 from .models import search_space as ss
 from .models.eval_net import EvalNetwork
@@ -35,13 +36,28 @@ parser.add_argument('--lookup_path', type=str,
                     default='./latency_pkl/latency_tpu.pkl',
                     help='path of latency lookup')
 parser.add_argument('--print_lat', action='store_true',
-                    help='print the LUT latency')
+                    help='measure and print the latency')
 parser.add_argument('--num_classes', type=int, default=1000)
 parser.add_argument('--space', type=str, default='mbconv',
                     choices=['mbconv', 'hybrid', 'tiny'])
 parser.add_argument('--image_size', type=int, default=224,
                     help='input resolution for the FLOPs report')
 parser.add_argument('--device', type=str, default='cuda')
+
+
+def print_latency(model, lat_lookup, image_size, device):
+    """The LUT latency of `model`, then its BN-folded bf16 forward timed on
+    `device` at batch 32 and batch 1 (the JAX driver prints these as
+    Lat_TPU; here the device's kind names them)."""
+    print('Lat_LUT:\t{:.4f}ms'.format(model.get_lookup_latency(
+        lat_lookup, input_size=image_size)))
+    kind = "GPU" if device.type == "cuda" else device.type.upper()
+    out = {}
+    for bs in (32, 1):
+        out[bs] = measure_model_latency_in_ms(model, bs, image_size,
+                                              torch.bfloat16, device=device)
+        print('Lat_{} bs={}:\t{:.4f}ms'.format(kind, bs, out[bs]))
+    return out
 
 
 def main(argv=None):
@@ -69,10 +85,7 @@ def main(argv=None):
     if args.print_lat:
         lat_lookup = (build_space_analytic_lut(space) if space is not None
                       else load_lat_lookup(args.lookup_path))
-        print('Lat_LUT:\t{:.4f}ms'.format(model.get_lookup_latency(
-            lat_lookup, input_size=args.image_size)))
-        print('Lat measured on the card: not yet ported to PyTorch (the '
-              'cost model comes in a later slice)')
+        print_latency(model, lat_lookup, args.image_size, device)
     return model
 
 

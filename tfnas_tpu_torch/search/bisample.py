@@ -14,9 +14,14 @@ import torch
 
 def sample_gumbel_indices(log_alphas, generator):
     """One categorical draw of softmax(log_alphas) per block (the hard
-    'gumbel' pick). log_alphas: [B, O] -> int64 [B]."""
+    'gumbel' pick). log_alphas: [B, O] -> int64 [B].
+
+    argmax(p / q) with q ~ Exp(1) is the draw torch.multinomial(p, 1) makes
+    from the same generator state, without its check of p, which reads a
+    device value on the host and so waits for the card."""
     probs = torch.softmax(log_alphas.float(), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator).squeeze(-1)
+    q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return (probs / q).argmax(dim=-1)
 
 
 def sample_random_excluding(excluded, num_ops, generator):

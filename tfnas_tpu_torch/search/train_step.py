@@ -8,6 +8,8 @@ Optimisers follow PyTorch's semantics as the JAX package writes them out:
 
 Parameter trees are nested dicts of tensors. The step functions are
 functional: they return new trees and leave their arguments unchanged.
+Steps made with capture=True are not: on the card they return static
+buffers that the next replay overwrites (search/compiled.py).
 Random draws enter as arguments (search/bisample.py makes them), so a step
 is a deterministic function of its inputs. Metrics stay on the device.
 """
@@ -20,7 +22,10 @@ from typing import Any, NamedTuple
 import torch
 
 from ..utils.metrics import accuracy, cross_entropy, masked_mean, nll
-from .bisample import gumbel_softmax_weights, project_log_softmax
+from .bisample import (gumbel_softmax_weights, gumbel_uniform,
+                       project_log_softmax, sample_gumbel_indices,
+                       sample_random_excluding)
+from .compiled import AutoGraphed, SharedFamily
 
 
 # -- trees -------------------------------------------------------------------
@@ -62,10 +67,36 @@ def value_and_grad(loss_fn, tree):
 
 
 # -- optimisers --------------------------------------------------------------
+#
+# Every update runs over all leaves at once with torch._foreach_* (a few
+# multi-tensor launches on the card instead of several per leaf). The
+# elementwise order of operations is the per-leaf one of the JAX package, so
+# the results do not depend on how the leaves are grouped. The step scalars
+# (lr, Adam's step count) may be 0-dim device tensors: nothing here reads a
+# device value on the host, so a step can be captured in a CUDA graph.
+
+def _leaves_f32(tree):
+    return [l.float() for l in tree_leaves(tree)]
+
+
+def _aligned(ref, tree):
+    """Leaves of `tree` (None kept) in the key order of `ref`: trees made
+    apart, as a checkpoint's params and the update masks, may order their
+    keys differently."""
+    if isinstance(ref, dict):
+        return [l for k, v in ref.items() for l in _aligned(v, tree[k])]
+    return [tree]
+
+
+def _rebuild(like, ref, leaves):
+    """A tree in `like`'s key order holding `leaves`, given in `ref`'s."""
+    return tree_map(lambda _, v: v, like, tree_unflatten(ref, leaves))
+
 
 def global_norm(tree):
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(tree)))
+    """sqrt(sum of squares) over every leaf, in f32."""
+    norms = torch._foreach_norm(_leaves_f32(tree))
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 def clip_by_global_norm(tree, max_norm):
@@ -73,48 +104,72 @@ def clip_by_global_norm(tree, max_norm):
     that is below 1."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
-    return tree_map(lambda g: g * scale, tree), norm
+    return tree_unflatten(tree, torch._foreach_mul(tree_leaves(tree),
+                                                   scale)), norm
+
+
+def _decayed(grads, params, weight_decay):
+    """g + weight_decay * p over the leaves (product, then sum), in the
+    key order of params."""
+    return torch._foreach_add(
+        _aligned(params, grads),
+        torch._foreach_mul(_leaves_f32(params), weight_decay))
 
 
 def sgd_momentum_update(params, grads, mom, update_masks, *, lr, momentum,
                         weight_decay, grad_clip):
     """One masked SGD + momentum step (dampening 0). update_masks leaves
-    multiply the step; None leaves update everywhere."""
+    multiply the step; None leaves update everywhere. lr: a float or a 0-dim
+    tensor."""
     grads, _ = clip_by_global_norm(grads, grad_clip)
-    d = tree_map(lambda g, p: g + weight_decay * p.float(), grads, params)
-    mom = tree_map(lambda m, u: momentum * m + u, mom, d)
-
-    def step(p, m, km):
-        delta = lr * m
-        return p - (delta if km is None else delta * km)
-    params = tree_map(step, params, mom, update_masks)
-    return params, mom
+    d = _decayed(grads, params, weight_decay)
+    m = torch._foreach_add(
+        torch._foreach_mul(_aligned(params, mom), momentum), d)
+    delta = list(torch._foreach_mul(m, lr))
+    km = _aligned(params, update_masks)
+    masked = [i for i, k in enumerate(km) if k is not None]
+    if masked:
+        for i, v in zip(masked, torch._foreach_mul(
+                [delta[i] for i in masked], [km[i] for i in masked])):
+            delta[i] = v
+    p = torch._foreach_sub(tree_leaves(params), delta)
+    return tree_unflatten(params, p), _rebuild(mom, params, m)
 
 
 class AdamState(NamedTuple):
-    step: int
+    step: Any  # 0-dim f32 tensor: the count of updates taken
     mu: Any
     nu: Any
 
 
 def adam_init(params):
-    return AdamState(0, zeros_like_tree(params), zeros_like_tree(params))
+    dev = tree_leaves(params)[0].device
+    return AdamState(torch.zeros((), device=dev), zeros_like_tree(params),
+                     zeros_like_tree(params))
 
 
 def adam_update(params, grads, st, *, lr, b1, b2, eps, weight_decay,
                 grad_clip):
-    """Adam with L2 weight decay folded into the gradient."""
+    """Adam with L2 weight decay folded into the gradient. The bias
+    corrections 1 - b ** step are taken in f64 on the device and rounded
+    to f32, as a host-side Python float would be."""
     grads, _ = clip_by_global_norm(grads, grad_clip)
-    grads = tree_map(lambda g, p: g + weight_decay * p.float(), grads, params)
+    g = _decayed(grads, params, weight_decay)
     step = st.step + 1
-    mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, st.mu, grads)
-    nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, st.nu, grads)
-    bc1 = 1 - b1 ** step
-    bc2 = 1 - b2 ** step
-    params = tree_map(
-        lambda p, m, v: p - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps),
-        params, mu, nu)
-    return params, AdamState(step, mu, nu)
+    mu = torch._foreach_add(torch._foreach_mul(_aligned(params, st.mu), b1),
+                            torch._foreach_mul(g, 1 - b1))
+    nu = torch._foreach_add(
+        torch._foreach_mul(_aligned(params, st.nu), b2),
+        torch._foreach_mul(torch._foreach_mul(g, 1 - b2), g))
+    bc1 = (1 - b1 ** step.double()).float()
+    bc2 = (1 - b2 ** step.double()).float()
+    upd = torch._foreach_div(
+        torch._foreach_mul(torch._foreach_div(mu, bc1), lr),
+        torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)),
+                           eps))
+    p = torch._foreach_sub(tree_leaves(params), upd)
+    return tree_unflatten(params, p), AdamState(
+        step, _rebuild(st.mu, params, mu), _rebuild(st.nu, params, nu))
 
 
 # -- search steps ------------------------------------------------------------
@@ -128,7 +183,8 @@ class SearchStepFns(NamedTuple):
 
 def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
                       a_beta1=0.5, a_beta2=0.999, a_wd=5e-4, grad_clip=5.0,
-                      lambda_lat=0.1, target_lat=15.0, lat_under_boost=1.0):
+                      lambda_lat=0.1, target_lat=15.0, lat_under_boost=1.0,
+                      capture=False, family=None):
     """The step functions for SuperNetwork `net`:
 
     warmup_step(params, arch_params, mom, masks, update_masks, x, y, lr,
@@ -139,7 +195,15 @@ def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
     val_step(params, arch_params, masks, x, y, idx_g, wmask=None) -> metrics
 
     x: [N, H, W, 3] in the compute dtype; y: int [N]; idx_*: int [18] op
-    indices; gumbel_u: the [18, 8] uniform draw of the Gumbel noise."""
+    indices; gumbel_u: the [18, 8] uniform draw of the Gumbel noise; lr,
+    base_lat, temperature: floats or 0-dim tensors.
+
+    capture mirrors the JAX package's jit=: with capture=True, the warmup,
+    weight and arch steps called with tensors on the card are each replayed
+    from a CUDA graph (search/compiled.py; their outputs are then static
+    buffers that the next replay overwrites, so a caller that keeps a
+    step's result clones it first). On the CPU they run eagerly.
+    family: the GraphFamily whose pool and buffers the graphs share."""
     del num_classes  # the logits carry it
 
     def _weight_update(params, mom, update_masks, grads, lr):
@@ -212,7 +276,77 @@ def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
         top1, top5 = accuracy(logits, y, topk=(1, 5), weights=wmask)
         return {"loss": loss, "top1": top1, "top5": top5}
 
-    return SearchStepFns(warmup_step, weight_step, arch_step, val_step)
+    if not capture:
+        return SearchStepFns(warmup_step, weight_step, arch_step, val_step)
+    shared = SharedFamily(family)
+    return SearchStepFns(
+        AutoGraphed(warmup_step, {0: 0, 1: 2}, "warmup_step", shared),
+        AutoGraphed(weight_step, {0: 0, 1: 2}, "weight_step", shared),
+        AutoGraphed(arch_step, {0: 1, 1: 2}, "arch_step", shared),
+        val_step)
+
+
+def make_scanned_search_iter(net, *, num_classes, arch_every=2, steps=None,
+                             **kw):
+    """K search units per call, each `arch_every` bi-sampling weight steps
+    followed by one soft arch step (the JAX package's
+    make_scanned_search_iter):
+
+      run(params, mom, arch_params, opt_a, masks, update_masks,
+          xw [K, arch_every, N, H, W, C], yw [K, arch_every, N],
+          xa [K, N, H, W, C], ya [K, N], lr, T, lat_vec, base_lat, draws)
+      -> (params, mom, arch_params, opt_a, wmetrics, ametrics)
+
+    wmetrics: {loss, top1, top5, idx_g, idx_r} stacked [K, arch_every, ...];
+    ametrics: {loss_a, loss_l, lat, gumbel_u} stacked [K, ...].
+
+    draws: a torch.Generator, from which every weight step draws its gumbel
+    pick and then its partner and every arch step the uniform of its Gumbel
+    noise, in that order (the order of the driver's step-by-step tail); or
+    the injected draws (idx_g [K, arch_every, 18], idx_r [K, arch_every,
+    18], gumbel_u [K, 18, 8]).
+
+    steps: the SearchStepFns to run (default: make_search_steps(net, **kw);
+    capture=True there replays each step from its graph on the card). The
+    units are a host loop over those steps: on the card it enqueues
+    replays and draws without waiting for the card, so K > 1 saves no
+    dispatch, unlike the JAX package's scan over a remote device."""
+    if steps is None:
+        steps = make_search_steps(net, num_classes=num_classes, **kw)
+
+    def run(params, mom, arch_params, opt_a, masks, update_masks, xw, yw, xa,
+            ya, lr, T, lat_vec, base_lat, draws):
+        gen = draws if isinstance(draws, torch.Generator) else None
+        num_ops = arch_params["log_alphas"].shape[-1]
+        wmet, amet = [], []
+        for u in range(xw.shape[0]):
+            for j in range(arch_every):
+                if gen is not None:
+                    ig = sample_gumbel_indices(arch_params["log_alphas"],
+                                               gen)
+                    ir = sample_random_excluding(ig, num_ops, gen)
+                else:
+                    ig, ir = draws[0][u, j], draws[1][u, j]
+                params, mom, m = steps.weight_step(
+                    params, arch_params, mom, masks, update_masks, xw[u, j],
+                    yw[u, j], lr, ig, ir)
+                # a captured step's metrics are overwritten by its next replay
+                wmet.append({k: v.clone() for k, v in m.items()}
+                            | {"idx_g": ig, "idx_r": ir})
+            gu = (gumbel_uniform(arch_params["log_alphas"].shape, gen)
+                  if gen is not None else draws[2][u])
+            arch_params, opt_a, ma = steps.arch_step(
+                params, arch_params, opt_a, masks, xa[u], ya[u], lat_vec,
+                base_lat, T, gu)
+            amet.append({k: v.clone() for k, v in ma.items()}
+                        | {"gumbel_u": gu})
+        n = xw.shape[0]
+        wm = {k: torch.stack([m[k] for m in wmet]).reshape(
+            n, arch_every, *wmet[0][k].shape) for k in wmet[0]}
+        am = {k: torch.stack([m[k] for m in amet]) for k in amet[0]}
+        return params, mom, arch_params, opt_a, wm, am
+
+    return run
 
 
 def cosine_lr_list(base_lr, epochs):

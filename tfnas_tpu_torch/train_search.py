@@ -8,10 +8,17 @@ Same flags and defaults as the JAX driver for `--space mbconv` and
 --train_list, --val_list) go through ImageList (uint8 pixels), the threaded
 DataLoader and the card's prefetcher and are normalised on the card;
 --synthetic makes the JAX driver's numpy batches.
-The bi-level loop is a plain Python loop: warmup epochs take one
-Gumbel-sampled weight step per batch; later epochs take a bi-sampling weight
-step per batch and a soft arch step every second batch, then rescale the
-widths against the latency table. Each epoch writes arch_params_NN.pkl and,
+Warmup epochs take one Gumbel-sampled weight step per batch; later epochs
+take a bi-sampling weight step per batch and a soft arch step after every
+second one, starting with the first (the JAX driver's order), then rescale
+the widths against the latency table. With --scan_units K > 1, full groups
+of 2K batches run as K units of two weight steps followed by one arch step
+(the JAX driver's scanned schedule) and the epoch's last batches step by
+step in the first order. On the card every step is replayed from a CUDA
+graph (search/compiled.py) unless --eager is given: the driver keeps its
+state in the graphs' static buffers and, at each epoch boundary, writes the
+new masks, latency vector, lr and T into them and zeros the optimiser state
+in place. Each epoch writes arch_params_NN.pkl and,
 every --save_freq epochs, searched_model_NN.pkl (the full supernet, about
 376 MB at full width) under --save: point --save outside the repository.
 """
@@ -41,8 +48,9 @@ from .search.bisample import (gumbel_uniform, sample_gumbel_indices,
 from .search.elasticity import rewrite_masks_by_l1, shrink_or_expand
 from .search.parser import (get_mc_num_dddict, get_op_and_depth_weights,
                             parse_architecture)
+from .search.compiled import GraphFamily, copy_tree_, leaves_of
 from .search.train_step import (adam_init, cosine_lr_list, make_search_steps,
-                                tree_leaves,
+                                make_scanned_search_iter, tree_leaves,
                                 zeros_like_tree)
 from .utils import (load_checkpoint, save_checkpoint_file, setup_experiment,
                     to_numpy_tree)
@@ -88,9 +96,14 @@ parser.add_argument('--steps_per_epoch', type=int, default=0)
 parser.add_argument('--image_size', type=int, default=224)
 parser.add_argument('--rrc_min_scale', type=float, default=0.08)
 parser.add_argument('--scan_units', type=int, default=1,
-                    help='accepted for CLI compatibility; the port runs '
-                         'the same schedule as a plain loop')
+                    help='K > 1: after the warmup epochs, run full groups '
+                         'of 2K batches as K units of (2 weight steps + 1 '
+                         'arch step) per call, as the JAX driver\'s scan '
+                         'does')
 parser.add_argument('--device', type=str, default='cuda')
+parser.add_argument('--eager', action='store_true',
+                    help='run the steps eagerly on the card instead of '
+                         'replaying them from CUDA graphs')
 
 
 def load_resume(path, device):
@@ -144,10 +157,241 @@ def make_loaders(args):
     return train_iter, val_iter, lambda ep: iter(fvl)
 
 
+class GeneratorDraws:
+    """The driver's draws, from one torch.Generator: a weight step's gumbel
+    pick and its partner, an arch step's Gumbel uniform."""
+
+    def __init__(self, generator):
+        self.generator = generator
+
+    def gumbel(self, log_alphas):
+        return sample_gumbel_indices(log_alphas, self.generator)
+
+    def partner(self, idx_g, num_ops):
+        return sample_random_excluding(idx_g, num_ops, self.generator)
+
+    def uniform(self, shape):
+        return gumbel_uniform(shape, self.generator)
+
+    def units(self, k):
+        """What make_scanned_search_iter draws from for k units: the
+        generator itself, so the draws are made inside the units."""
+        return self.generator
+
+
+class Search:
+    """The search loop's state and its epochs. On the card with a
+    GraphFamily, every tree the steps read lives in the family's static
+    buffers, written in place between replays.
+
+    scan_units: None for the JAX driver's per-step order (an arch step
+    after weight steps 0, 2, 4, ... of an epoch); K to run full groups of
+    2K batches as K units of (2 weight steps + 1 arch step) through
+    make_scanned_search_iter, the rest of the epoch in the per-step
+    order."""
+
+    def __init__(self, net, space, lat_lookup, params, arch_params,
+                 mc_mask_dddict, device, *, step_kwargs, family=None,
+                 scan_units=None):
+        self.net, self.space, self.lut = net, space, lat_lookup
+        self.device = device
+        self.adopt = family.adopt if family is not None else (lambda t: t)
+        self.steps = make_search_steps(net, capture=family is not None,
+                                       family=family, **step_kwargs)
+        self.scan = make_scanned_search_iter(net, arch_every=2,
+                                             steps=self.steps,
+                                             **step_kwargs)
+        self.scan_units = scan_units
+        self.params = self.adopt(params)
+        self.arch_params = self.adopt(arch_params)
+        self.mc_mask_dddict = mc_mask_dddict
+        self.key_dddict = space.build_lat_lookup_key_dddict()
+        self.mc_maxnum_dddict = get_mc_num_dddict(
+            space.build_mc_mask_dddict(), is_max=True)
+        self.masks = self.update_masks = self.lat_vec = None
+        self.mom = self.opt_a = None
+        self.lr = self.adopt(torch.zeros((), device=device))
+        self.T = self.adopt(torch.zeros((), device=device))
+        self.base_lat = self.adopt(torch.tensor(float(lat_lookup["base"]),
+                                                device=device))
+        self.num_ops = space.NUM_OPS
+
+    def _set(self, name, value):
+        """Rebind on the first epoch; later, write into the same buffers."""
+        if getattr(self, name) is None:
+            setattr(self, name, self.adopt(value))
+        else:
+            copy_tree_(getattr(self, name), value)
+
+    def begin_epoch(self, lr, T):
+        """Masks, update masks and latency vector of the current widths;
+        fresh optimiser state (the reference recreates its optimisers every
+        epoch); the epoch's lr and T."""
+        mc_num_dddict = get_mc_num_dddict(self.mc_mask_dddict)
+        self._set("masks", self.net.device_masks(self.mc_mask_dddict,
+                                                 self.device))
+        self._set("update_masks", self.net.update_masks(
+            self.params, self.mc_mask_dddict))
+        self._set("lat_vec", torch.from_numpy(lat_vectors_for_mc(
+            self.lut, mc_num_dddict, self.key_dddict,
+            self.num_ops)).to(self.device))
+        if self.mom is None:
+            self.mom = self.adopt(zeros_like_tree(self.params))
+            self.opt_a = self.adopt(adam_init(self.arch_params))
+        else:
+            torch._foreach_zero_(leaves_of(self.mom) + leaves_of(self.opt_a))
+        self.lr.fill_(lr)
+        self.T.fill_(T)
+
+    # -- steps --------------------------------------------------------------
+
+    def warmup_step(self, x, y, draws):
+        idx_g = draws.gumbel(self.arch_params["log_alphas"])
+        self.params, self.mom, m = self.steps.warmup_step(
+            self.params, self.arch_params, self.mom, self.masks,
+            self.update_masks, x, y, self.lr, idx_g)
+        return m
+
+    def weight_step(self, x, y, draws):
+        idx_g = draws.gumbel(self.arch_params["log_alphas"])
+        idx_r = draws.partner(idx_g, self.num_ops)
+        self.params, self.mom, m = self.steps.weight_step(
+            self.params, self.arch_params, self.mom, self.masks,
+            self.update_masks, x, y, self.lr, idx_g, idx_r)
+        return m
+
+    def arch_step(self, xa, ya, draws):
+        u = draws.uniform(self.arch_params["log_alphas"].shape)
+        self.arch_params, self.opt_a, m = self.steps.arch_step(
+            self.params, self.arch_params, self.opt_a, self.masks, xa, ya,
+            self.lat_vec, self.base_lat, self.T, u)
+        return m
+
+    def units(self, xw, yw, xa, ya, draws):
+        """K units through the scanned iteration; xw [K, 2, N, ...]."""
+        (self.params, self.mom, self.arch_params, self.opt_a, wm,
+         am) = self.scan(self.params, self.mom, self.arch_params, self.opt_a,
+                         self.masks, self.update_masks, xw, yw, xa, ya,
+                         self.lr, self.T, self.lat_vec, self.base_lat,
+                         draws.units(xw.shape[0]))
+        return wm, am
+
+    # -- one epoch ----------------------------------------------------------
+
+    def train_epoch(self, batches, arch_batches, draws, warm, prep, log=None,
+                    print_freq=100):
+        """One epoch over `batches` (device (x, y) pairs); arch_batches()
+        yields the arch steps' batches, restarted when it runs out. Returns
+        the [7] metric sums [loss, top1, top5, loss_a, loss_l, weight
+        steps, arch steps], on the device."""
+        macc = torch.zeros(7, device=self.device)
+        zero = torch.zeros((), device=self.device)
+        one = torch.ones((), device=self.device)
+
+        def acc_w(m):
+            macc.add_(torch.stack([m["loss"], m["top1"], m["top5"], zero,
+                                   zero, one, zero]))
+
+        def acc_a(m):
+            macc.add_(torch.stack([zero, zero, zero, m["loss_a"],
+                                   m["loss_l"], zero, one]))
+
+        def report(step):
+            if log is not None:
+                avg = _mavg(macc.tolist())
+                log('TRAIN%s Step: %04d Objs: %f R1: %f R5: %f Objs_A: %f '
+                    'Objs_L: %f', ' wo_Arch' if warm else ' w_Arch', step,
+                    avg["loss"], avg["top1"], avg["top5"], avg["loss_a"],
+                    avg["loss_l"])
+
+        if warm:
+            for step, (x, y) in enumerate(batches):
+                acc_w(self.warmup_step(prep(x), y, draws))
+                if step % print_freq == 0:
+                    report(step)
+            return macc
+
+        arch_it = iter(arch_batches())
+
+        def next_arch():
+            nonlocal arch_it
+            batch = next(arch_it, None)
+            if batch is None:
+                arch_it = iter(arch_batches())
+                batch = next(arch_it)
+            return batch
+
+        def per_step(step, x, y):
+            acc_w(self.weight_step(x, y, draws))
+            if step % 2 == 0:
+                xa, ya = next_arch()
+                acc_a(self.arch_step(prep(xa), ya, draws))
+            if step % print_freq == 0:
+                report(step)
+
+        if self.scan_units is None:
+            for step, (x, y) in enumerate(batches):
+                per_step(step, prep(x), y)
+            return macc
+
+        group = 2 * self.scan_units
+        buf, step = [], 0
+        for x, y in batches:
+            buf.append((prep(x), y))
+            if len(buf) < group:
+                continue
+            pairs = [next_arch() for _ in range(self.scan_units)]
+            wm, am = self.units(
+                torch.stack([b[0] for b in buf]).reshape(
+                    self.scan_units, 2, *buf[0][0].shape),
+                torch.stack([b[1] for b in buf]).reshape(
+                    self.scan_units, 2, -1),
+                torch.stack([prep(p[0]) for p in pairs]),
+                torch.stack([p[1] for p in pairs]), draws)
+            macc.add_(torch.stack([
+                wm["loss"].sum(), wm["top1"].sum(), wm["top5"].sum(),
+                am["loss_a"].sum(), am["loss_l"].sum(), one * group,
+                one * self.scan_units]))
+            if any((step + j) % print_freq == 0 for j in range(group)):
+                report(step)
+            step += group
+            buf = []
+        # the tail (fewer than 2K batches), step by step; `step` is even
+        for j, (x, y) in enumerate(buf):
+            per_step(step + j, x, y)
+        return macc
+
+    def end_epoch(self, target_lat, log=lambda *a: None):
+        """Shrink or expand the widths toward target_lat and rewrite the
+        masks by the L1 norm of the trained depthwise kernels."""
+        op_weights, depth_weights = get_op_and_depth_weights(
+            {"arch_params": to_numpy_tree(self.arch_params)})
+        parsed_arch = parse_architecture(op_weights, depth_weights,
+                                         space=self.space)
+        mc_num_dddict, before_lat, after_lat = shrink_or_expand(
+            parsed_arch, get_mc_num_dddict(self.mc_mask_dddict),
+            self.mc_maxnum_dddict, self.key_dddict, self.lut, target_lat,
+            log=log)
+        log('Before, the current lat: %.4f, the target lat: %.4f',
+            before_lat, target_lat)
+        self.mc_mask_dddict = rewrite_masks_by_l1(
+            parsed_arch, mc_num_dddict, self.mc_mask_dddict, self.params)
+        log('After, the current lat: %.4f, the target lat: %.4f', after_lat,
+            target_lat)
+
+
+def _mavg(a):
+    nw, na = max(a[5], 1.0), max(a[6], 1.0)
+    return {"loss": a[0] / nw, "top1": a[1] / nw, "top5": a[2] / nw,
+            "loss_a": a[3] / na, "loss_l": a[4] / na}
+
+
 def main(argv=None):
     args = parser.parse_args(argv)
     if args.space == 'hybrid':
         raise SystemExit("--space hybrid is not yet ported to PyTorch")
+    if args.scan_units < 1:
+        raise SystemExit("--scan_units must be at least 1")
     device = resolve_device(args.device)
     train_iter, val_iter, full_val_iter = make_loaders(args)
     run_dir = setup_experiment(args.save, 'search', args.note)
@@ -182,15 +426,23 @@ def main(argv=None):
     logging.info("param size = %fMB", sum(
         p.numel() for p in tree_leaves(params)) / 1e6)
 
-    steps = make_search_steps(
-        net, num_classes=args.num_classes, w_mom=args.w_mom, w_wd=args.w_wd,
-        a_lr=args.a_lr, a_beta1=args.a_beta1, a_beta2=args.a_beta2,
-        a_wd=args.a_wd, grad_clip=args.grad_clip,
-        lambda_lat=args.lambda_lat, target_lat=args.target_lat,
-        lat_under_boost=args.lat_under_boost)
-    lr_list = cosine_lr_list(args.w_lr, args.epochs)
+    family = (GraphFamily(device)
+              if device.type == "cuda" and not args.eager else None)
+    logging.info("steps: %s", "CUDA graphs" if family else "eager")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    num_ops = space.NUM_OPS
+    search = Search(
+        net, space, lat_lookup, params, arch_params, mc_mask_dddict, device,
+        step_kwargs=dict(
+            num_classes=args.num_classes, w_mom=args.w_mom, w_wd=args.w_wd,
+            a_lr=args.a_lr, a_beta1=args.a_beta1, a_beta2=args.a_beta2,
+            a_wd=args.a_wd, grad_clip=args.grad_clip,
+            lambda_lat=args.lambda_lat, target_lat=args.target_lat,
+            lat_under_boost=args.lat_under_boost),
+        family=family,
+        scan_units=args.scan_units if args.scan_units > 1 else None)
+    del params, arch_params
+    draws = GeneratorDraws(gen)
+    lr_list = cosine_lr_list(args.w_lr, args.epochs)
 
     def save_epoch(epoch, T, final=False):
         """arch_params_NN.pkl every epoch; searched_model_NN.pkl every
@@ -198,16 +450,16 @@ def main(argv=None):
         format."""
         masks_np = {st: {b: {o: np.asarray(m) for o, m in d.items()}
                          for b, d in sd.items()}
-                    for st, sd in mc_mask_dddict.items()}
+                    for st, sd in search.mc_mask_dddict.items()}
         with open(f"{run_dir}/arch_params_{epoch:02d}.pkl", "wb") as f:
-            pickle.dump({"arch_params": to_numpy_tree(arch_params),
+            pickle.dump({"arch_params": to_numpy_tree(search.arch_params),
                          "mc_mask_dddict": masks_np, "epoch": epoch,
                          "T": T}, f)
         if args.save_freq > 1 and not final and epoch % args.save_freq:
             return
         save_checkpoint_file(to_numpy_tree({
-            "params": params_to_jax(params),
-            "arch_params": arch_params,
+            "params": params_to_jax(search.params),
+            "arch_params": search.arch_params,
             "mc_mask_dddict": copy.deepcopy(masks_np),
             "epoch": epoch,
             "T": T,
@@ -219,79 +471,27 @@ def main(argv=None):
     # uint8 batches are normalised on the card; float batches only cast
     prep = device_normalizer(dtype)
 
-    def val_batches(epoch):
-        return iter(DevicePrefetcher(val_iter(epoch), device))
-
     total_start = time.time()
     for epoch in range(start_epoch, args.epochs):
-        mc_num_dddict = get_mc_num_dddict(mc_mask_dddict)
-        masks = net.device_masks(mc_mask_dddict, device)
-        update_masks = net.update_masks(params, mc_mask_dddict)
-        lat_vec = torch.from_numpy(lat_vectors_for_mc(
-            lat_lookup, mc_num_dddict, key_dddict, num_ops)).to(device)
-        base_lat = float(lat_lookup["base"])
-        # fresh optimizers every epoch, as the reference recreates them
-        mom = zeros_like_tree(params)
-        opt_a = adam_init(arch_params)
         lr = lr_list[epoch]
+        search.begin_epoch(lr, T)
         logging.info('Epoch: %d lr: %e T: %e', epoch, lr, T)
-
-        # [loss, top1, top5, loss_a, loss_l sums, weight steps, arch steps]
-        # accumulate on the device; one pull per log line
-        macc = torch.zeros(7, device=device)
-
-        def mavg(a):
-            nw, na = max(a[5], 1.0), max(a[6], 1.0)
-            return {"loss": a[0] / nw, "top1": a[1] / nw, "top5": a[2] / nw,
-                    "loss_a": a[3] / na, "loss_l": a[4] / na}
-
         epoch_start = time.time()
         warm = epoch < args.warmup_epochs
-        arch_it = None if warm else val_batches(epoch)
-        for step, (x, y) in enumerate(
-                DevicePrefetcher(train_iter(epoch), device)):
-            x = prep(x)
-            log_alphas = arch_params["log_alphas"]
-            idx_g = sample_gumbel_indices(log_alphas, gen)
-            if warm:
-                params, mom, m = steps.warmup_step(
-                    params, arch_params, mom, masks, update_masks, x, y, lr,
-                    idx_g)
-            else:
-                idx_r = sample_random_excluding(idx_g, num_ops, gen)
-                params, mom, m = steps.weight_step(
-                    params, arch_params, mom, masks, update_masks, x, y, lr,
-                    idx_g, idx_r)
-                if step % 2 == 0:
-                    xa_ya = next(arch_it, None)
-                    if xa_ya is None:
-                        arch_it = val_batches(epoch)
-                        xa_ya = next(arch_it)
-                    arch_params, opt_a, ma = steps.arch_step(
-                        params, arch_params, opt_a, masks, prep(xa_ya[0]),
-                        xa_ya[1], lat_vec, base_lat, T,
-                        gumbel_uniform(log_alphas.shape, gen))
-                    macc[3] += ma["loss_a"]
-                    macc[4] += ma["loss_l"]
-                    macc[6] += 1
-            macc[:3] += torch.stack([m["loss"], m["top1"], m["top5"]])
-            macc[5] += 1
-            if step % args.print_freq == 0:
-                avg = mavg(macc.tolist())
-                logging.info(
-                    'TRAIN%s Step: %04d Objs: %f R1: %f R5: %f Objs_A: %f '
-                    'Objs_L: %f', ' wo_Arch' if warm else ' w_Arch', step,
-                    avg["loss"], avg["top1"], avg["top5"], avg["loss_a"],
-                    avg["loss_l"])
-        epoch_avg = mavg(macc.tolist())
+        macc = search.train_epoch(
+            DevicePrefetcher(train_iter(epoch), device),
+            lambda: DevicePrefetcher(val_iter(epoch), device), draws, warm,
+            prep, log=logging.info, print_freq=args.print_freq)
+        epoch_avg = _mavg(macc.tolist())
         if not warm:
             T *= args.T_decay
 
         logging.info('The current arch parameters are:')
-        for row in np.exp(arch_params["log_alphas"].cpu().numpy()):
+        for row in np.exp(search.arch_params["log_alphas"].cpu().numpy()):
             logging.info(' '.join(f'{p:.6f}' for p in row))
         for stage in space.STAGE_NAMES:
-            sm = torch.softmax(arch_params["betas"][stage], 0).cpu().numpy()
+            sm = torch.softmax(search.arch_params["betas"][stage],
+                               0).cpu().numpy()
             logging.info(' '.join(f'{p:.6f}' for p in sm))
         logging.info('Train_acc %f', epoch_avg["top1"])
         logging.info('Epoch time: %ds', time.time() - epoch_start)
@@ -304,9 +504,10 @@ def main(argv=None):
                 n_valid = batch[2] if len(batch) > 2 else len(y)
                 wmask = torch.zeros(len(y), device=device)
                 wmask[:n_valid] = 1.0
-                idx_g = sample_gumbel_indices(arch_params["log_alphas"], gen)
-                m = steps.val_step(params, arch_params, masks, prep(x), y,
-                                   idx_g, wmask)
+                idx_g = draws.gumbel(search.arch_params["log_alphas"])
+                m = search.steps.val_step(search.params, search.arch_params,
+                                          search.masks, prep(x), y, idx_g,
+                                          wmask)
                 vacc += torch.stack([m["top1"], m["top5"],
                                      torch.ones((), device=device)]) * n_valid
             va = vacc.tolist()
@@ -315,23 +516,15 @@ def main(argv=None):
 
         if not warm:
             logging.info('Now shrinking or expanding the arch')
-            op_weights, depth_weights = get_op_and_depth_weights(
-                {"arch_params": to_numpy_tree(arch_params)})
-            parsed_arch = parse_architecture(op_weights, depth_weights,
-                                             space=space)
-            mc_num_dddict, before_lat, after_lat = shrink_or_expand(
-                parsed_arch, get_mc_num_dddict(mc_mask_dddict),
-                mc_maxnum_dddict, key_dddict, lat_lookup, args.target_lat,
-                log=logging.info)
-            logging.info('Before, the current lat: %.4f, the target lat: '
-                         '%.4f', before_lat, args.target_lat)
-            mc_mask_dddict = rewrite_masks_by_l1(
-                parsed_arch, mc_num_dddict, mc_mask_dddict, params)
-            logging.info('After, the current lat: %.4f, the target lat: '
-                         '%.4f', after_lat, args.target_lat)
+            search.end_epoch(args.target_lat, log=logging.info)
 
         save_epoch(epoch + 1, T, final=(epoch + 1 == args.epochs))
 
+    if family is not None:
+        for g in family.graphs:
+            logging.info("graph %s: built in %.1fs, %d replays, fused "
+                         "kernel nodes %s", g.name, g.build_s, g.replays,
+                         g.nodes)
     logging.info('Total searching time: %ds', time.time() - total_start)
     return run_dir
 
