@@ -69,6 +69,25 @@ Phases, each printing one JSON line as soon as it ends:
    (CUDA events, in turns). The eval path launches no fused kernel: its
    depthwise convolutions are cuDNN's, as they are XLA's in JAX.
 
+9. hybrid: the full-width HybridSuperNetwork (the 9-op conv/ViT space,
+   batch 32, 224^2, 100 classes, bf16, latency_pkl/latency_h100_hybrid.pkl):
+   eager warmup, weight and arch steps against their CUDA-graph replays bit
+   for bit (cuDNN deterministic), the weight steps' draws forced to the ViT
+   candidate at one site in each trunk; both kernel strides among each
+   graph's nodes; an epoch boundary whose parse (ViT picks),
+   shrink_or_expand and L1 rewrite change a ViT mask, written into the
+   graphs' buffers, then captured = eager again; eager and captured ms in
+   turns; the busy share of a profiled captured weight and arch step and
+   the ViT share (the device time of the 9 ViT branches' forward and
+   backward, replayed alone from a graph, per trunk); `train_search
+   --space hybrid` (one warmup and one search epoch of 4 batches) captured
+   and --eager, whose arch_params_NN.pkl must be the same bytes; then an
+   eval net with the ViT candidate at stage5/block1 and stage6/block1:
+   two bf16 train steps at batch 256, the folds against the unfolded
+   forward, folded bf16 images/s and its latency at batch 32. The
+   kernel's checks of phase 2 cover the hybrid sites: their depthwise
+   shapes are the MBConv sites'.
+
 The line before the last holds the kernels' summary; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
 does a run without a card, a run without the package beside this file, and
@@ -95,6 +114,7 @@ VAL_IMAGES = 1000           # 3 full batches of 256 and one padded
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 TARGET_LAT = 0.25           # ms, inside latency_tpu.pkl's range
+HYBRID_TARGET_LAT = 4.5     # ms, inside latency_h100_hybrid.pkl's range
 FLUSH_BYTES = 128 << 20     # written between launches for the cold-L2 time
 # ragged shapes the main path does not reach: (N, H, W, C); C 30 and 194
 # take the channel-pair copies in both dtypes, 200 the 16-byte ones
@@ -1148,6 +1168,323 @@ def phase_eval(torch, tmpdir, searched):
     _folds(torch, np, tfnas_a, state)
 
 
+# -- phase 9 ------------------------------------------------------------------
+
+def _vit_branch_ms(torch, net, params, dtype):
+    """Device ms of the 9 ViT branches' forward and backward at the search
+    step's shapes (batch 32, 224^2, `dtype`), replayed from one CUDA graph:
+    the ViT part of one sampled trunk."""
+    from tfnas_tpu_torch.models import search_space as ss
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    items = []
+    for g, (stage, block, entry) in net.vit.items():
+        res = ss.BLOCK_INPUT_RES[stage][int(block[5:]) - 1]
+        x = torch.randn((BATCH, entry[0], res, res), generator=gen,
+                        device=dev).to(dtype).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        p = {k: {kk: v.detach().requires_grad_() for kk, v in d.items()}
+             for k, d in params[stage][block]["vit"].items()}
+        items.append((net.vit_blocks[g], p, x))
+
+    def body():
+        for vb, p, x in items:
+            y = vb.apply(p, {}, x, training=True)[0]
+            leaves = [x] + [v for d in p.values() for v in d.values()]
+            torch.autograd.grad(y.float().square().mean(), leaves)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        body()
+    graph.replay()
+    ms = _events_ms(torch, graph.replay, 5)
+    del graph, items
+    return ms
+
+
+def _release(torch):
+    """Free the card memory of graphs no longer referenced: a GraphFamily
+    and its graphs refer to each other, so only the cycle collector frees
+    them (a driver run's graphs hold some 10 GB of private pools)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_hybrid(torch, fused_dw, tmpdir):
+    """The hybrid conv/ViT space on the card: the full-width
+    HybridSuperNetwork's eager and captured steps (weight-step draws with a
+    ViT pick in each trunk) bit for bit, across an epoch boundary whose
+    rewrite changes a ViT mask; step ms in turns; profiles; the driver's
+    --space hybrid run captured and --eager; then a hybrid eval net
+    retrained, folded and timed. Returns (eager launches by stride, fused
+    nodes per replayed step by graph, the driver's replayed launches)."""
+    import numpy as np
+    from tfnas_tpu_torch import train_search
+    from tfnas_tpu_torch.cost.lut import lat_vectors_for_mc, load_lat_lookup
+    from tfnas_tpu_torch.cost.measure import measure_model_latency_in_ms
+    from tfnas_tpu_torch.data.synthetic import device_batches
+    from tfnas_tpu_torch.models import hybrid_space as hs
+    from tfnas_tpu_torch.models.eval_net import EvalNetwork
+    from tfnas_tpu_torch.models.supernet_hybrid import HybridSuperNetwork
+    from tfnas_tpu_torch.search.bisample import (gumbel_uniform,
+                                                 sample_gumbel_indices,
+                                                 sample_random_excluding)
+    from tfnas_tpu_torch.search.compiled import GraphFamily, copy_tree_
+    from tfnas_tpu_torch.search.elasticity import (rewrite_masks_by_l1,
+                                                   shrink_or_expand)
+    from tfnas_tpu_torch.search.parser import (get_mc_num_dddict,
+                                               parse_architecture)
+    from tfnas_tpu_torch.search.train_step import (adam_init,
+                                                   make_search_steps,
+                                                   tree_leaves,
+                                                   zeros_like_tree)
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    lut_path = os.path.join(here, "latency_pkl", "latency_h100_hybrid.pkl")
+    _release(torch)  # the graphs of the earlier phases' driver runs
+    mem0 = torch.cuda.memory_allocated()
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    dev = torch.device("cuda")
+    lut = load_lat_lookup(lut_path)
+    keys = hs.build_lat_lookup_key_dddict()
+    net = HybridSuperNetwork(100)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    t0 = time.perf_counter()
+    params, arch = net.init(gen)
+    mc_mask = hs.build_mc_mask_dddict()
+    valid = net.valid_mask(dev)
+    kw = dict(num_classes=100, lambda_lat=0.1, target_lat=HYBRID_TARGET_LAT,
+              valid_mask=valid)
+    fam = GraphFamily(dev)
+    state = fam.adopt({
+        "params": params, "arch": arch, "mom": zeros_like_tree(params),
+        "opt": adam_init(arch), "masks": net.device_masks(mc_mask, dev),
+        "umasks": net.update_masks(params, mc_mask),
+        "lat": torch.from_numpy(lat_vectors_for_mc(
+            lut, get_mc_num_dddict(mc_mask), keys, hs.NUM_OPS)).to(dev),
+        "lr": torch.tensor(0.025, device=dev),
+        "T": torch.tensor(5.0, device=dev),
+        "base": torch.tensor(float(lut["base"]), device=dev)})
+    n_params = sum(p.numel() for p in tree_leaves(params)) / 1e6
+    del params, arch
+    eager = make_search_steps(net, **kw)
+    capt = make_search_steps(net, capture=True, family=fam, **kw)
+    data = device_batches(BATCH, 6, gen, 100, 224, torch.bfloat16)
+    batches = [next(data) for _ in range(6)]
+    torch.cuda.synchronize()
+    emit({"phase": "hybrid", "step": "setup", "init_s":
+          time.perf_counter() - t0, "params_M": n_params,
+          "lut": os.path.relpath(lut_path, here),
+          "mem_GB_before_phase": mem0 / 1e9,
+          "vit_keys": sorted(k for k in lut if k.startswith("ViTBlock"))})
+
+    def draws(la, g, kind):
+        """Masked draws; the weight step's forced to op 8 at stage5/block1
+        (the gumbel pick) and stage6/block1 (its partner)."""
+        ig = sample_gumbel_indices(la, g, valid)
+        ig[13] = hs.VIT_OP_IDX
+        if kind == "warmup":
+            return (ig,)
+        ig[17] = 0
+        ir = sample_random_excluding(ig, hs.NUM_OPS, g, valid)
+        ir[17] = hs.VIT_OP_IDX
+        return ig, ir
+
+    def call(steps, kind, st, i):
+        x, y = batches[i]
+        la = st["arch"]["log_alphas"]
+        g = torch.Generator(device=dev).manual_seed(200 + i)
+        if kind == "arch":
+            u = gumbel_uniform(la.shape, g)
+            a, o, m = steps.arch_step(st["params"], st["arch"], st["opt"],
+                                      st["masks"], x, y, st["lat"],
+                                      st["base"], st["T"], u)
+            return {"arch": a, "opt": o}, m
+        fn = steps.warmup_step if kind == "warmup" else steps.weight_step
+        p, mo, m = fn(st["params"], st["arch"], st["mom"], st["masks"],
+                      st["umasks"], x, y, st["lr"], *draws(la, g, kind))
+        return {"params": p, "mom": mo}, m
+
+    failures = []
+
+    def check(kind, i, tag):
+        snap = _clone(torch, state)
+        want, wm = call(eager, kind, snap, i)
+        del snap
+        got, gm = call(capt, kind, state, i)
+        errs = {k: _tree_err(torch, got[k], want[k]) for k in got}
+        errs["metrics"] = _tree_err(torch, gm, wm)
+        rec = {"phase": "hybrid", "step": kind, "replay": i, "at": tag,
+               "max_abs_err": errs,
+               "bit_identical": max(errs.values()) == 0.0,
+               "loss": float(gm.get("loss", gm.get("loss_a")))}
+        emit(rec)
+        if not (rec["bit_identical"] and math.isfinite(rec["loss"])):
+            failures.append(rec)
+        for k, v in got.items():
+            state[k] = v
+
+    # the main path: every count at 0, eager and captured steps, read after
+    fused_dw.reset_launches()
+    for i, kind in enumerate(("warmup", "weight", "arch", "weight", "arch")):
+        check(kind, i, "start")
+    launches = dict(fused_dw.launches)
+    graphs = {g.name: g for g in fam.graphs}
+    nodes = {n: dict(g.nodes) for n, g in graphs.items()}
+    emit({"phase": "hybrid", "step": "graphs",
+          "build_s": {n: g.build_s for n, g in graphs.items()},
+          "fused_nodes_by_stride": nodes, "eager_launches": launches,
+          "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+    for name in ("warmup_step", "weight_step", "arch_step"):
+        if not (nodes[name].get(1) and nodes[name].get(2)):
+            failures.append(f"{name}: fused nodes {nodes[name]}")
+
+    # the epoch boundary: a parsed arch with ViT picks through
+    # shrink_or_expand and the L1 rewrite; new masks into the buffers
+    op_w = [np.eye(hs.NUM_OPS)[1] for _ in range(18)]
+    op_w[13] = op_w[17] = np.eye(hs.NUM_OPS)[hs.VIT_OP_IDX]
+    parsed = parse_architecture(op_w, [np.eye(d)[-1] for d in
+                                       (2, 3, 4, 4, 4, 1)], space=hs)
+    mc_num = get_mc_num_dddict(mc_mask)
+    lat_now = lut["base"] + sum(
+        lut[keys[s][b][o]][mc_num[s][b][o]]
+        for s, d in parsed.items() for b, o in d.items())
+    new_num, before, after = shrink_or_expand(
+        parsed, mc_num, get_mc_num_dddict(mc_mask, is_max=True), keys, lut,
+        0.8 * lat_now)
+    old = {s: {b: np.array(mc_mask[s][b][8]) for b in ("block1",)}
+           for s in ("stage5", "stage6")}
+    mc_mask = rewrite_masks_by_l1(parsed, new_num, mc_mask, state["params"])
+    vit_changed = {s: int((old[s]["block1"] != mc_mask[s]["block1"][8])
+                          .sum()) for s in old}
+    copy_tree_(state["masks"], net.device_masks(mc_mask, dev))
+    copy_tree_(state["umasks"], net.update_masks(state["params"], mc_mask))
+    copy_tree_(state["lat"], torch.from_numpy(lat_vectors_for_mc(
+        lut, get_mc_num_dddict(mc_mask), keys, hs.NUM_OPS)).to(dev))
+    emit({"phase": "hybrid", "step": "epoch_boundary", "lat_before": before,
+          "lat_after": after, "vit_mask_entries_changed": vit_changed})
+    if not any(vit_changed.values()):
+        failures.append(f"the rewrite changed no ViT mask: {vit_changed}")
+    check("weight", 5, "after_vit_rewrite")
+    check("arch", 4, "after_vit_rewrite")
+
+    # eager and captured step ms, in turns
+    times = collections.defaultdict(list)
+    est = _clone(torch, state)
+    for kind in ("weight", "arch"):
+        for mode in ("eager", "captured", "captured", "eager"):
+            st = est if mode == "eager" else state
+            steps = eager if mode == "eager" else capt
+
+            def once():
+                out, _ = call(steps, kind, st, 5)
+                st.update(out)
+            once()
+            times[(kind, mode)].append(_events_ms(torch, once, 3))
+    emit({"phase": "hybrid", "step": "times_ms",
+          **{f"{k}_{m}": v for (k, m), v in times.items()}})
+    del est
+
+    # one captured weight and arch step under the profiler; the ViT
+    # branches' own device time from a graph of them alone
+    vit_ms = _vit_branch_ms(torch, net, state["params"], torch.bfloat16)
+    profiles = {}
+    for kind, trunks in (("weight", 2), ("arch", 1)):
+        trace = os.path.join(tmpdir, f"trace_hybrid_{kind}.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("step"):
+                out, _ = call(capt, kind, state, 5)
+                torch.cuda.synchronize()
+        state.update(out)
+        prof.export_chrome_trace(trace)
+        summary = _profile_summary(f"hybrid_captured_{kind}", trace)
+        os.remove(trace)
+        summary["vit_fwd_bwd_ms_per_trunk"] = vit_ms
+        summary["vit_share_of_busy"] = (trunks * vit_ms
+                                        / summary["device_busy_ms"])
+        profiles[kind] = summary
+        emit(dict(summary, phase="hybrid_profile"))
+    for kind in ("weight", "arch"):
+        by_stride = profiles[kind]["fused_dw_ms_by_stride"]
+        if not (by_stride.get(1) and by_stride.get(2)):
+            failures.append(f"captured hybrid {kind} step: fused kernel "
+                            f"device ms by stride {by_stride}")
+    del state, capt, eager, fam
+    _release(torch)
+
+    # the driver, --space hybrid, captured and --eager
+    runs, counts = {}, {}
+    for mode in ("captured", "eager"):
+        fused_dw.reset_launches()
+        t = time.perf_counter()
+        run = train_search.main([
+            "--synthetic", "--space", "hybrid", "--epochs", "2",
+            "--warmup_epochs", "1", "--steps_per_epoch", "4",
+            "--save", os.path.join(tmpdir, f"hybrid_{mode}"),
+            "--save_freq", "100", "--print_freq", "2",
+            "--target_lat", str(HYBRID_TARGET_LAT), "--lookup_path",
+            lut_path] + (["--eager"] if mode == "eager" else []))
+        runs[mode] = (run, time.perf_counter() - t)
+        counts[mode] = {"launches": dict(fused_dw.launches),
+                        "replayed": dict(fused_dw.replayed)}
+        _release(torch)
+    same = {}
+    for name in sorted(os.listdir(runs["eager"][0])):
+        if name.startswith("arch_params_"):
+            with open(os.path.join(runs["captured"][0], name), "rb") as f:
+                a = f.read()
+            with open(os.path.join(runs["eager"][0], name), "rb") as f:
+                same[name] = a == f.read()
+    rec = {"phase": "hybrid", "step": "driver", "epochs": 2,
+           "seconds": {m: r[1] for m, r in runs.items()},
+           "fused_dw_counts": counts, "arch_params_bytes_identical": same}
+    emit(rec)
+    for mode in runs:
+        shutil.rmtree(runs[mode][0])
+    if not (len(same) == 3 and all(same.values())):
+        failures.append(rec)
+    if not all(counts["captured"]["replayed"].values()):
+        failures.append(f"the captured hybrid driver replayed no fused "
+                        f"kernel of some stride: {counts}")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+
+    # a hybrid eval net: ViT at stage5/block1 and stage6/block1
+    eval_parsed = parse_architecture(op_w, [np.eye(d)[-1] for d in
+                                            (2, 3, 4, 4, 4, 1)], space=hs)
+    evnet = EvalNetwork.from_parsed_arch(
+        1000, eval_parsed, get_mc_num_dddict(hs.build_mc_mask_dddict()),
+        0.2, 0.2)
+    n_vit = sum(b.name == "ViTBlock" for _, _, b in evnet.iter_blocks())
+    fused_dw.reset_launches()
+    estate, _ = _retrain(torch, np, "hybrid", evnet, 2, tmpdir)
+    _folds(torch, np, evnet, estate)
+    lat32 = measure_model_latency_in_ms(evnet, BATCH, 224, torch.bfloat16,
+                                        device=dev)
+    rec = {"phase": "hybrid", "step": "eval", "vit_blocks": n_vit,
+           "config_vit": [c for s in ("stage5", "stage6")
+                          for c in evnet.config[s]
+                          if c["name"] == "ViTBlock"],
+           "lut_ms": evnet.get_lookup_latency(lut),
+           "folded_bf16_ms_bs32": lat32,
+           "fused_dw_launches": sum(fused_dw.launches.values())}
+    emit(rec)
+    if n_vit != 2 or not (math.isfinite(lat32) and lat32 > 0):
+        failures.append(rec)
+    if failures:
+        raise AssertionError(f"hybrid phase: {failures}")
+    return launches, nodes, counts["captured"]["replayed"]
+
+
 def _profile_summary(step, path):
     """What the card did inside the profiled step's window (the host range
     'step', which ends after a synchronize): busy share, the fused kernel's
@@ -1234,10 +1571,16 @@ def main():
               "launches": eval_launches})
         if eval_launches:
             raise AssertionError("the eval path launched the fused kernel")
+        hyb_launches, hyb_nodes, hyb_replayed = phase_hybrid(
+            torch, fused_dw, tmpdir)
     for stride, n in launches.items():
         if n == 0:
             raise AssertionError(f"stride-{stride} kernel never launched on "
                                  f"the main path")
+    for stride in (1, 2):
+        if not (hyb_launches.get(stride) and hyb_replayed.get(stride)):
+            raise AssertionError(f"stride-{stride} kernel never launched on "
+                                 f"the hybrid path")
 
     kernels = []
     for stride, name, replaces in (
@@ -1268,6 +1611,12 @@ def main():
                 k: nodes[f"{k}_step"][stride]
                 for k in ("warmup", "weight", "arch")},
             "replayed_launches_driver": replayed[stride],
+            # the hybrid space's captured steps and its driver run
+            "launches_per_replayed_hybrid_step": {
+                k: hyb_nodes[f"{k}_step"][stride]
+                for k in ("warmup", "weight", "arch")},
+            "hybrid_eager_launches": hyb_launches[stride],
+            "replayed_launches_hybrid_driver": hyb_replayed[stride],
             "captured_step_device_ms": {
                 k: cprof[k]["fused_dw_ms_by_stride"].get(stride, 0.0)
                 for k in ("weight", "arch")}})

@@ -123,8 +123,14 @@ def test_measured_lut_schema_and_resume(tmp_path, capsys):
     assert lut2[first[0]] == lut[first[0]] and lut2["base"] == lut["base"]
     # the JAX package's loader reads the port's table
     assert jcost.load_lat_lookup(out).keys() == lut2.keys()
-    with pytest.raises(SystemExit, match="hybrid"):
-        tlut.main(["--space", "hybrid", "--output", out])
+    # --space hybrid appends the ViT candidate's 5 keys to the 66
+    hyb = tlut.main(["--space", "hybrid", "--output", out + ".hybrid"])
+    assert list(hyb) == (["base"] + [k[0] for k in tlut.site_keys()]
+                         + [k[0] for k in tlut.vit_keys()])
+    assert [k for k in hyb if k.startswith("ViTBlock")] == [
+        k for k in jlut.build_analytic_lut(space="hybrid")
+        if k.startswith("ViTBlock")]
+    assert jcost.load_lat_lookup(out + ".hybrid").keys() == hyb.keys()
 
 
 def test_bench_prints_phases_and_summary_and_keeps_its_deadline(capsys):

@@ -548,3 +548,122 @@ def test_latency_chain_on_card(cuda):
         256, 512, device=cuda)), warmup=5, iters=20)
     empty = measure_latency_in_ms(lambda v: v, (x,), warmup=5, iters=20)
     assert 0 < empty <= ms
+
+
+# -- the hybrid conv/ViT space -------------------------------------------------
+
+def _hybrid_draws(la, valid, gen):
+    """Masked weight-step draws with the ViT candidate picked at
+    stage5/block1 (gumbel) and stage6/block1 (partner)."""
+    from tfnas_tpu_torch.search.bisample import (sample_gumbel_indices,
+                                                 sample_random_excluding)
+    ig = sample_gumbel_indices(la, gen, valid)
+    ig[13], ig[17] = 8, 0
+    ir = sample_random_excluding(ig, 9, gen, valid)
+    ir[17] = 8
+    return ig, ir
+
+
+def test_hybrid_steps_on_card_match_cpu(cuda):
+    """One warmup, weight and arch step of the full-width hybrid supernet
+    (64^2, batch 2, f32, TF32 off) on the card against the CPU with the
+    same draws, ViT picks included: 1e-4."""
+    from tfnas_tpu_torch.models import hybrid_space as hs
+    from tfnas_tpu_torch.models.supernet_hybrid import HybridSuperNetwork
+    from tfnas_tpu_torch.search.train_step import (adam_init,
+                                                   make_search_steps)
+    net = HybridSuperNetwork(10)
+    params, arch = net.init(torch.Generator().manual_seed(0))
+    mc = hs.build_mc_mask_dddict()
+    valid = net.valid_mask("cpu")
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 64, 64, 3), generator=g)
+    y = torch.randint(0, 10, (2,), generator=g)
+    ig, ir = _hybrid_draws(arch["log_alphas"], valid, g)
+    u = torch.rand((18, 9), generator=g).clamp_min(1e-6)
+    lat = torch.rand((18, 9), generator=g) * 0.01 * valid
+    outs = []
+    for dev in ("cpu", cuda):
+        steps = make_search_steps(net, num_classes=10, lambda_lat=0.1,
+                                  target_lat=0.02,
+                                  valid_mask=valid.to(dev))
+        p, a = _to(params, dev), _to(arch, dev)
+        masks = net.device_masks(mc, dev)
+        um = net.update_masks(p, mc)
+        mom = tree_map(torch.zeros_like, p)
+        before = dict(tfused.launches)
+        p1, m1, _ = steps.warmup_step(p, a, mom, masks, um, x.to(dev),
+                                      y.to(dev), 0.025, ig.to(dev))
+        p2, m2, _ = steps.weight_step(p1, a, m1, masks, um, x.to(dev),
+                                      y.to(dev), 0.025, ig.to(dev),
+                                      ir.to(dev))
+        a3, opt, ma = steps.arch_step(p2, a, adam_init(a), masks, x.to(dev),
+                                      y.to(dev), lat.to(dev), 0.004, 5.0,
+                                      u.to(dev))
+        launched = {s: tfused.launches[s] - before[s] for s in before}
+        assert launched == ({1: 0, 2: 0} if dev == "cpu"
+                            else {1: 14 * 4, 2: 4 * 4})
+        outs.append([t.cpu() for t in tree_leaves(p2) + tree_leaves(m2)
+                     + tree_leaves(a3) + [ma["loss_a"], ma["lat"]]])
+    for c, k in zip(*outs):
+        torch.testing.assert_close(k, c, rtol=1e-4, atol=1e-4)
+
+
+def test_hybrid_captured_matches_eager_across_a_vit_rewrite(deterministic):
+    """The driver loop over the full-width hybrid space (64^2, batch 2),
+    captured and eager from the same seed: a warmup epoch, a search epoch
+    whose end parses ViT picks and rewrites their MLP masks, and a search
+    epoch on the rewritten masks written into the graphs' buffers. Both
+    runs agree after every epoch, and a ViT mask changed."""
+    import numpy as np
+    from tfnas_tpu_torch import train_search as ts
+    from tfnas_tpu_torch.make_lat_lut import build_analytic_lut
+    from tfnas_tpu_torch.models import hybrid_space as hs
+    from tfnas_tpu_torch.models.supernet_hybrid import HybridSuperNetwork
+    from tfnas_tpu_torch.search.compiled import GraphFamily
+    dev = deterministic
+    lut = build_analytic_lut(space="hybrid")
+    g = torch.Generator().manual_seed(8)
+    batches = [[(torch.randn((2, 64, 64, 3), generator=g).to(dev),
+                 torch.randint(0, 10, (2,), generator=g).to(dev))
+                for _ in range(2)] for _ in range(3)]
+    arch_b = [(torch.randn((2, 64, 64, 3), generator=g).to(dev),
+               torch.randint(0, 10, (2,), generator=g).to(dev))]
+    results = {}
+    for mode in ("eager", "captured"):
+        net = HybridSuperNetwork(10)
+        params, arch = net.init(torch.Generator().manual_seed(2))
+        arch["log_alphas"][9:, 8] += 2.0  # the parse picks the ViT blocks
+        valid = net.valid_mask(dev)
+        kw = dict(num_classes=10, lambda_lat=0.1, target_lat=0.5,
+                  valid_mask=valid)
+        fam = GraphFamily(dev) if mode == "captured" else None
+        search = ts.Search(net, hs, lut, _to(params, dev), _to(arch, dev),
+                           hs.build_mc_mask_dddict(), dev, step_kwargs=kw,
+                           family=fam)
+        draws = ts.GeneratorDraws(torch.Generator(device=dev).manual_seed(4),
+                                  valid)
+        per_epoch = []
+        for epoch in range(3):
+            search.begin_epoch(0.025, 5.0)
+            search.train_epoch(batches[epoch], lambda: iter(arch_b), draws,
+                               epoch == 0, lambda x: x)
+            if epoch:
+                search.end_epoch(0.5)
+            per_epoch.append((_to(search.params, "cpu"),
+                              _to(search.arch_params, "cpu"),
+                              {s: {b: np.asarray(d[8]).copy()
+                                   for b, d in sd.items() if 8 in d}
+                               for s, sd in search.mc_mask_dddict.items()}))
+        results[mode] = per_epoch
+    first = hs.build_mc_mask_dddict()
+    assert any(not np.array_equal(m, first[s][b][8])
+               for s, d in results["eager"][1][2].items()
+               for b, m in d.items())
+    for (pe, ae, me), (pc, ac, mc) in zip(results["eager"],
+                                          results["captured"]):
+        _assert_trees_equal(pc, pe)
+        _assert_trees_equal(ac, ae)
+        for s in me:
+            for b in me[s]:
+                assert np.array_equal(me[s][b], mc[s][b])

@@ -65,11 +65,14 @@ def test_entry_points_refuse_cuda_without_card(tmp_path):
 
 
 def test_driver_refuses_unported_paths(tmp_path):
-    """--space hybrid is refused; real data is ported now, and a missing
-    image list stops the driver before it writes anything."""
+    """--space hybrid is ported: it refuses a latency table without the ViT
+    keys, as the JAX driver does; a missing image list stops the driver.
+    Neither writes anything."""
     from tfnas_tpu_torch.train_search import main
-    with pytest.raises(SystemExit, match="hybrid"):
-        main(["--synthetic", "--space", "hybrid", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="needs ViT entries in the LUT"):
+        main(["--synthetic", "--space", "hybrid", "--device", "cpu",
+              "--save", str(tmp_path), "--lookup_path",
+              os.path.join(ROOT, "latency_pkl", "latency_tpu.pkl")])
     with pytest.raises(FileNotFoundError, match="missing.txt"):
         main(["--space", "tiny", "--device", "cpu", "--save", str(tmp_path),
               "--train_list", str(tmp_path / "missing.txt")])

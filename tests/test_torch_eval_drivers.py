@@ -109,9 +109,17 @@ def test_parsing_model_writes_the_jax_config_bytes(tmp_path, capsys,
     for bs in (32, 1):
         ms = float(re.search(rf"Lat_CPU bs={bs}:\s*(\S+)ms", tout).group(1))
         assert math.isfinite(ms) and ms > 0
-    with pytest.raises(SystemExit, match="hybrid"):
-        tparse.main(["--model_path", PARETO, "--space", "hybrid",
-                     "--device", "cpu"])
+    # --space hybrid parses the hybrid search's arch parameters, ViT
+    # candidates included, into the JAX driver's config bytes
+    (hybrid,) = glob.glob(os.path.join(ROOT, "checkpoints_e2e",
+                                       "hybrid-natural", "*",
+                                       "arch_params_20.pkl"))
+    args = ["--model_path", hybrid, "--space", "hybrid", "--num_classes",
+            "10", "--save_path"]
+    run_jax_driver("parsing_model", args + [str(jax_cfg)])
+    hmodel = tparse.main(args + [str(port_cfg), "--device", "cpu"])
+    assert port_cfg.read_bytes() == jax_cfg.read_bytes()
+    assert any(b.name == "ViTBlock" for _, _, b in hmodel.iter_blocks())
 
 
 def test_search_parse_retrain_test_pipeline(tmp_path, capsys):

@@ -5,7 +5,8 @@ supernet's stacked candidates as [8, kh, kw, I, O]; the port keeps them OIHW
 ([O, I, kh, kw]) and [8, O, I, kh, kw]. In both trees the 4-d and 5-d leaves
 are exactly the convolution kernels, so the rank decides the layout; every
 other leaf (dense and SE kernels, biases, BN statistics, arch parameters,
-masks) is copied as it is. Keys and nesting are the same in both trees, so
+masks, and the whole `vit` subtree of the hybrid space: [in, out] linear
+kernels, biases, LayerNorm parameters) is copied as it is. Keys and nesting are the same in both trees, so
 the same two functions carry eval-network parameters, BN state and
 momentum (the folded stem's [2, 2, 4C, O] kernel included) both ways.
 """

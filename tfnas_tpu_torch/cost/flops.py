@@ -8,7 +8,9 @@ once, as the reference's forward hooks count them:
   a bias);
 - Linear: in * out (+ out with a bias);
 - AdaptiveAvgPool2d(1): C * h * w;
-- the SE convolutions are 1x1 convolutions with a bias on a 1x1 map.
+- the SE convolutions are 1x1 convolutions with a bias on a 1x1 map;
+- a ViT block: the patch-merge projection, QKV, q.k^T and attn.v, the
+  attention's out projection and the two MLP linears.
 
 `count_parameters_in_MB` counts parameters / 1e6 (BN running statistics
 are state, not parameters).
@@ -16,6 +18,7 @@ are state, not parameters).
 
 from __future__ import annotations
 
+from ..ops.attention import ViTBlock
 from ..ops.layers import (ConvLayer, IdentityLayer, LinearLayer,
                           MBInvertedResBlock)
 from ..search.train_step import tree_leaves
@@ -70,6 +73,19 @@ def layer_flops(layer, in_res):
             f += _conv_flops(1, layer.se_channels, mc, layer.groups, 1, 1, True)
         f += _conv_flops(1, mc, layer.out_channels, layer.groups,
                          out_res, out_res, layer.bias)
+        return f, out_res
+    if isinstance(layer, ViTBlock):
+        c, mc = layer.out_channels, layer.mid_channels
+        out_res = in_res // layer.stride if layer.stride > 1 else in_res
+        t = out_res * out_res
+        f = 0.0
+        if layer.has_patch_merge:
+            f += t * (layer.in_channels * c + c)         # 1x1 proj + bias
+        f += t * (3 * c * c + 3 * c)                     # QKV
+        f += 2.0 * t * t * c                             # q.k^T and attn.v
+        f += t * (c * c + c)                             # attn out proj
+        f += t * (c * mc + mc)                           # mlp in
+        f += t * (mc * c + c)                            # mlp out
         return f, out_res
     raise TypeError(f"unknown layer type: {type(layer)}")
 

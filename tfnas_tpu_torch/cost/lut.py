@@ -115,6 +115,29 @@ def analytic_block_ms(res, cin, se, cout, k, stride, mc, batch=32,
     return t * 1000.0
 
 
+def analytic_vit_ms(res, cin, cout, stride, mc, batch=32, dtype_bytes=2,
+                    peak_flops=ANALYTIC_PEAK_FLOPS, peak_bw=ANALYTIC_PEAK_BW,
+                    overhead=ANALYTIC_OVERHEAD_S):
+    """Roofline estimate of one ViT block forward of the hybrid space
+    (make_lat_lut_tpu.py's analytic_vit_ms): patch-merge projection, QKV
+    and out projections, attention and MLP."""
+    out_res = res // stride if stride > 1 else res
+    t = out_res * out_res
+    c_q = _round_up(cout, 128)
+    mc_q = _round_up(mc, 128)
+    flops = 0.0
+    if stride > 1 or cin != cout:
+        flops += 2 * t * _round_up(cin, 128) * c_q
+    flops += 2 * t * c_q * 3 * c_q            # qkv
+    flops += 2 * 2 * t * t * c_q              # q.k^T + attn.v
+    flops += 2 * t * c_q * c_q                # out proj
+    flops += 2 * t * c_q * mc_q * 2           # mlp in + out
+    flops *= batch
+    bytes_ = batch * t * (cin + 6 * cout + 2 * mc) * dtype_bytes
+    bytes_ += (cin * cout + 4 * cout * cout + 2 * cout * mc) * dtype_bytes
+    return (max(flops / peak_flops, bytes_ / peak_bw) + overhead) * 1000.0
+
+
 def build_space_analytic_lut(sp, batch=32, scale=1.0):
     """Analytic LUT for a make_space namespace: one entry per unique block
     key over mc 1..mask length, and a small constant 'base'

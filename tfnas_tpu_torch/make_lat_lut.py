@@ -17,11 +17,18 @@ channels: ms} for every integer mid width.
 - analytic: make_lat_lut_tpu.py's roofline formulas (max of the matmul
   time at the peak rate and the bytes at the memory rate, plus a launch
   overhead) with the H100 SXM data sheet's rates below.
+
+--space hybrid appends the 5 keys of the hybrid space's ViT candidate,
+'ViTBlock_{res}_{cin}_h4_{cout}_s{S}_{act}' -> {MLP hidden width: ms}
+(models/hybrid_space.py): measured as an affine ViTBlock in bf16 at the
+batch, or from the roofline. With --resume on a copy of an mbconv table,
+only those keys are measured and the others stay as they were.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import pickle
 import time
@@ -30,9 +37,11 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from .cost.lut import ANALYTIC_OVERHEAD_S, analytic_block_ms, save_lat_lookup
+from .cost.lut import (ANALYTIC_OVERHEAD_S, analytic_block_ms,
+                       analytic_vit_ms, save_lat_lookup)
 from .cost.measure import measure_latency_in_ms
 from .device import resolve_device
+from .models import hybrid_space as hs
 from .models import search_space as ss
 from .ops.layers import ConvLayer, LinearLayer, MBInvertedResBlock
 from .search.train_step import tree_map
@@ -57,8 +66,8 @@ def site_list():
 
 
 def site_keys():
-    """(key, res, cin, se, cout, k, stride, act, max_mc) in
-    make_lat_lut_tpu.py's order."""
+    """(key, res, cin, se, cout, k, stride, act, max_mc) of the conv
+    candidates, in make_lat_lut_tpu.py's order."""
     out = []
     for res, cin, cout, stride, act in site_list():
         for k in (3, 5):
@@ -68,6 +77,14 @@ def site_keys():
                             f"_k{k}_s{stride}_{act}", res, cin, se, cout, k,
                             stride, act, cin * e_max))
     return out
+
+
+def vit_keys():
+    """(key, res, cin, cout, stride, act, max_mc) of the hybrid space's ViT
+    candidate, after the conv keys as make_lat_lut_tpu.py appends them."""
+    return [(hs.vit_lut_key(res, cin, cout, stride, act), res, cin, cout,
+             stride, act, cout * hs.VIT_MAX_EXPAND)
+            for res, cin, cout, stride, act in hs.vit_lut_sites()]
 
 
 # -- analytic mode ------------------------------------------------------------
@@ -91,8 +108,10 @@ def analytic_base_ms(batch=32, peak_flops=H100_PEAK_FLOPS,
 
 
 def build_analytic_lut(batch=32, scale=1.0, peak_flops=H100_PEAK_FLOPS,
-                       peak_bw=H100_PEAK_BW, overhead=LAUNCH_OVERHEAD_S):
-    """The full space's roofline table."""
+                       peak_bw=H100_PEAK_BW, overhead=LAUNCH_OVERHEAD_S,
+                       space="mbconv"):
+    """The full space's roofline table (with the ViT keys for
+    space='hybrid')."""
     peaks = dict(peak_flops=peak_flops, peak_bw=peak_bw, overhead=overhead)
     lut = OrderedDict()
     lut["base"] = analytic_base_ms(batch, **peaks) * scale
@@ -101,6 +120,12 @@ def build_analytic_lut(batch=32, scale=1.0, peak_flops=H100_PEAK_FLOPS,
             (mc, analytic_block_ms(res, cin, se, cout, k, stride, mc, batch,
                                    **peaks) * scale)
             for mc in range(1, max_mc + 1))
+    if space == "hybrid":
+        for key, res, cin, cout, stride, _, max_mc in vit_keys():
+            lut[key] = OrderedDict(
+                (mc, analytic_vit_ms(res, cin, cout, stride, mc, batch,
+                                     **peaks) * scale)
+                for mc in range(1, max_mc + 1))
     return lut
 
 
@@ -165,6 +190,13 @@ def measure_block_ms(res, cin, se, cout, k, stride, act, mc, batch, device,
     return time_layer(block, (batch, res, res, cin), device, warmup, iters)
 
 
+def measure_vit_ms(res, cin, cout, stride, act, mc, batch, device, warmup,
+                   iters):
+    """The ViT candidate as the eval network holds it (affine LN)."""
+    block = hs.make_vit_op((cin, cout, stride, act), mc, affine=True)
+    return time_layer(block, (batch, res, res, cin), device, warmup, iters)
+
+
 def measure_base_ms(batch, device, warmup, iters):
     """The five fixed modules at their true shapes."""
     base = time_layer(ConvLayer(affine=True, **ss.STEM_CONV),
@@ -184,10 +216,11 @@ def measure_base_ms(batch, device, warmup, iters):
 
 def build_measured_lut(batch=32, stride_points=16, warmup=10, iters=50,
                        device="cuda", log=print, max_keys=0, resume_lut=None,
-                       checkpoint=None):
+                       checkpoint=None, space="mbconv"):
     """Measure each key at mc_points, interpolate to every integer.
     resume_lut: a partial table whose keys are kept; checkpoint(lut) is
-    called after 'base' and after every key."""
+    called after 'base' and after every key. space='hybrid' appends the
+    ViT keys; max_keys counts the conv keys first."""
     lut = OrderedDict(resume_lut or {})
     checkpoint = checkpoint or (lambda lut: None)
     if "base" in lut:
@@ -196,8 +229,15 @@ def build_measured_lut(batch=32, stride_points=16, warmup=10, iters=50,
         lut["base"] = measure_base_ms(batch, device, warmup, iters)
         log(f"base = {lut['base']:.4f} ms")
         checkpoint(lut)
-    for done, (key, res, cin, se, cout, k, stride, act, max_mc) in \
-            enumerate(site_keys()):
+    jobs = [(key, max_mc, functools.partial(
+                measure_block_ms, res, cin, se, cout, k, stride, act))
+            for key, res, cin, se, cout, k, stride, act, max_mc
+            in site_keys()]
+    if space == "hybrid":
+        jobs += [(key, max_mc, functools.partial(
+                     measure_vit_ms, res, cin, cout, stride, act))
+                 for key, res, cin, cout, stride, act, max_mc in vit_keys()]
+    for done, (key, max_mc, measure) in enumerate(jobs):
         if max_keys and done >= max_keys:
             break
         if key in lut:
@@ -205,8 +245,7 @@ def build_measured_lut(batch=32, stride_points=16, warmup=10, iters=50,
             continue
         t = time.perf_counter()
         pts = mc_points(max_mc, stride_points)
-        lats = [measure_block_ms(res, cin, se, cout, k, stride, act, mc,
-                                 batch, device, warmup, iters) for mc in pts]
+        lats = [measure(mc, batch, device, warmup, iters) for mc in pts]
         xs = np.arange(1, max_mc + 1)
         lut[key] = OrderedDict((int(mc), float(v)) for mc, v in
                                zip(xs, np.interp(xs, pts, lats)))
@@ -244,8 +283,6 @@ parser.add_argument('--device', type=str, default='cuda')
 
 def main(argv=None):
     args = parser.parse_args(argv)
-    if args.space == 'hybrid':
-        raise SystemExit("--space hybrid is not yet ported to PyTorch")
     os.makedirs(os.path.dirname(args.output) or '.', exist_ok=True)
 
     def write_atomic(lut):
@@ -254,7 +291,8 @@ def main(argv=None):
         os.replace(tmp, args.output)
 
     if args.mode == 'analytic':
-        lut = build_analytic_lut(args.batch_size, args.scale)
+        lut = build_analytic_lut(args.batch_size, args.scale,
+                                 space=args.space)
     else:
         device = resolve_device(args.device)
         resume_lut = None
@@ -267,7 +305,7 @@ def main(argv=None):
                                  args.warmup, args.iters, device,
                                  max_keys=args.max_keys,
                                  resume_lut=resume_lut,
-                                 checkpoint=write_atomic)
+                                 checkpoint=write_atomic, space=args.space)
         if args.isotonic:
             lut = apply_isotonic(lut)
     write_atomic(lut)

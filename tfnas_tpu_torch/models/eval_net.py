@@ -21,8 +21,10 @@ from collections import OrderedDict
 
 import torch
 
+from ..ops.attention import ViTBlock
 from ..ops.layers import (ConvLayer, LinearLayer, MBInvertedResBlock,
                           set_layer_from_config)
+from . import hybrid_space as hs
 from . import search_space as ss
 
 
@@ -54,14 +56,15 @@ class EvalNetwork:
             blocks = []
             for i, block in enumerate(parsed_arch.get(stage, {})):
                 op_idx = parsed_arch[stage][block]
-                if op_idx >= ss.NUM_OPS:
-                    raise NotImplementedError(
-                        "ViT candidates (the hybrid conv/ViT space) are not "
-                        "yet ported to PyTorch")
                 mc = mc_num_dddict[stage][block][op_idx]
-                blocks.append(sp.make_op(op_idx, spec["ics"][i], mc,
-                                         spec["ocs"][i], spec["ss"][i],
-                                         True, spec["acts"][i]))
+                if op_idx >= ss.NUM_OPS:  # the hybrid space's ViT candidate
+                    blocks.append(hs.make_vit_op(
+                        (spec["ics"][i], spec["ocs"][i], spec["ss"][i],
+                         spec["acts"][i]), mc, affine=True))
+                else:
+                    blocks.append(sp.make_op(op_idx, spec["ics"][i], mc,
+                                             spec["ocs"][i], spec["ss"][i],
+                                             True, spec["acts"][i]))
             stages[stage] = blocks
         return cls(
             first_stem=ConvLayer(affine=True, **sp.STEM_CONV),
@@ -117,7 +120,7 @@ class EvalNetwork:
 
     @staticmethod
     def _with_dc(block, rate):
-        if isinstance(block, MBInvertedResBlock):
+        if isinstance(block, (MBInvertedResBlock, ViTBlock)):
             return dataclasses.replace(block, drop_connect_rate=rate)
         return block
 
@@ -165,16 +168,23 @@ class EvalNetwork:
 
     def draw_keep(self, n, generator):
         """The random draws of one training forward at batch n: per block,
-        floor(keep_prob + U[0, 1)) of shape [N] (None where the block drops
+        floor(keep_prob + U[0, 1)) of shape [N] (a pair of them, one per
+        residual branch, for a ViT block; None where the block drops
         nothing), then the [N, features] dropout keep mask (None at rate
         0)."""
         dev = generator.device
+
+        def draw(rate):
+            u = torch.rand((n,), generator=generator, device=dev)
+            return torch.floor((1.0 - rate) + u)
+
         keep = []
         for b in self._blocks():
             rate = getattr(b, "drop_connect_rate", 0.0)
-            if rate > 0.0 and b.has_residual:
-                u = torch.rand((n,), generator=generator, device=dev)
-                keep.append(torch.floor((1.0 - rate) + u))
+            if rate > 0.0 and isinstance(b, ViTBlock):
+                keep.append((draw(rate), draw(rate)))
+            elif rate > 0.0 and b.has_residual:
+                keep.append(draw(rate))
             else:
                 keep.append(None)
         if self.dropout_rate > 0.0:
@@ -231,10 +241,15 @@ class EvalNetwork:
         lat = lat_lookup["base"]
         res = input_size // self.first_stem.stride
         for _, _, block in self.iter_blocks():
-            key = "{}_{}_{}_{}_{}_k{}_s{}_{}".format(
-                block.name, res, block.in_channels, block.se_channels,
-                block.out_channels, block.kernel_size, block.stride,
-                block.act_func)
+            if isinstance(block, ViTBlock):
+                key = hs.vit_lut_key(res, block.in_channels,
+                                     block.out_channels, block.stride,
+                                     block.act_func)
+            else:
+                key = "{}_{}_{}_{}_{}_k{}_s{}_{}".format(
+                    block.name, res, block.in_channels, block.se_channels,
+                    block.out_channels, block.kernel_size, block.stride,
+                    block.act_func)
             lat += lat_lookup[key][block.mid_channels]
             res = res // block.stride if block.stride > 1 else res
         return lat

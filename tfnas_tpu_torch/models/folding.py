@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.activations import apply_act
+from ..ops.attention import ViTBlock
 from ..ops.batchnorm import BN_EPS
 from ..ops.layers import ConvLayer
 from .eval_net import EvalNetwork
@@ -52,6 +53,10 @@ def _fold_conv_layer(layer, params, state):
 
 
 def _fold_mbconv(layer, params, state):
+    if isinstance(layer, ViTBlock):
+        # the hybrid space's ViT block: LayerNorm keeps no running
+        # statistics, so nothing folds; it passes through unchanged
+        return layer, dict(params)
     if not layer.use_bn:
         return layer, dict(params)
     new_params = {}

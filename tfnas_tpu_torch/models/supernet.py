@@ -329,6 +329,26 @@ class SuperNetwork:
             y = y + x
         return y
 
+    # -- block dispatch (hooks for the hybrid subclass) -------------------
+
+    def _block_masks(self, masks, site):
+        """The block's slice of the device-mask tree."""
+        return masks[site.stage][site.block]
+
+    def _sampled_block_fn(self, site, training):
+        """fn(p, masks, op_idx, x): the block's hard-sampled forward."""
+        def fn(p, masks, op_idx, x):
+            return self._block_sampled(site, p, self._block_masks(masks, site),
+                                       op_idx, x, training)
+        return fn
+
+    def _soft_block_fn(self, site, training):
+        """fn(p, masks, w, x): the block's all-candidates soft forward."""
+        def fn(p, masks, w, x):
+            return self._block_soft(site, p, self._block_masks(masks, site),
+                                    w, x, training)
+        return fn
+
     # -- public forwards ---------------------------------------------------
 
     def _trunk(self, params, arch_params, x, block_fn):
@@ -358,9 +378,8 @@ class SuperNetwork:
     def _sampled_trunk(self, params, arch_params, masks, h, op_indices,
                        training):
         def block(site, p, h):
-            return self._block_sampled(site, p, masks[site.stage][site.block],
-                                       op_indices[site.global_idx], h,
-                                       training)
+            return self._sampled_block_fn(site, training)(
+                p, masks, op_indices[site.global_idx], h)
         return self._trunk(params, arch_params, h, block)
 
     def apply_sampled_pair(self, params, arch_params, masks, x, idx_a,
@@ -390,9 +409,8 @@ class SuperNetwork:
             for d in range(depth):
                 site = self.sites[si + d]
                 wv = gumbel_weights[site.global_idx]
-                h = self._block_soft(site, params[site.stage][site.block],
-                                     masks[site.stage][site.block], wv, h,
-                                     training)
+                h = self._soft_block_fn(site, training)(
+                    params[site.stage][site.block], masks, wv, h)
                 cum_lat = cum_lat + torch.dot(wv, lat_vec[site.global_idx])
                 res_list.append(h)
                 lat_list.append(cum_lat)

@@ -4,6 +4,7 @@ from .conv import (channel_shuffle, conv2d, global_avg_pool,
                    init_conv_kernel, init_linear, linear, torch_uniform_init)
 from .layers import (ConvLayer, IdentityLayer, LinearLayer,
                      MBInvertedResBlock, drop_connect, set_layer_from_config)
+from .attention import ViTBlock, layer_norm, multi_head_attention
 
 __all__ = [
     "ACT_FNS", "apply_act", "get_act_fn", "hard_swish", "relu", "relu6",
@@ -11,5 +12,6 @@ __all__ = [
     "channel_shuffle", "conv2d", "global_avg_pool", "init_conv_kernel",
     "init_linear", "linear", "torch_uniform_init", "ConvLayer",
     "IdentityLayer", "LinearLayer", "MBInvertedResBlock", "drop_connect",
-    "set_layer_from_config",
+    "set_layer_from_config", "ViTBlock", "layer_norm",
+    "multi_head_attention",
 ]

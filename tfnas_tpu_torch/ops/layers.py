@@ -383,8 +383,7 @@ def set_layer_from_config(layer_config):
         return None
     cfg = dict(layer_config)
     name = cfg.pop("name")
-    if name == "ViTBlock":
-        raise NotImplementedError(
-            "ViTBlock (the hybrid conv/ViT space) is not yet ported to "
-            "PyTorch")
+    if name == "ViTBlock":  # the hybrid space's candidate (ops/attention.py)
+        from .attention import ViTBlock
+        return ViTBlock(**cfg)
     return _NAME2LAYER[name](**cfg)

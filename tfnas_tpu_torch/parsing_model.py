@@ -2,7 +2,8 @@
 repository's parsing_model.py).
 
     python -m tfnas_tpu_torch.parsing_model --model_path searched_model_NN.pkl \
-        --save_path model.config [--space tiny --image_size 32] [--print_lat]
+        --save_path model.config [--space hybrid | --space tiny
+        --image_size 32] [--print_lat]
 
 Argmax of the ops and depths of the checkpoint's arch parameters, widths
 from its masks; writes the model.config JSON and prints Params and FLOPs,
@@ -62,9 +63,9 @@ def print_latency(model, lat_lookup, image_size, device):
 
 def main(argv=None):
     args = parser.parse_args(argv)
-    if args.space == 'hybrid':
-        raise SystemExit("--space hybrid is not yet ported to PyTorch")
     device = resolve_device(args.device)
+    # hybrid shares the reference skeleton: from_parsed_arch builds the ViT
+    # candidate from op index 8 of the parsed arch
     space = ss.tiny_space(args.image_size) if args.space == 'tiny' else None
 
     op_weights, depth_weights = get_op_and_depth_weights(args.model_path)

@@ -129,18 +129,28 @@ def rewrite_masks_by_l1(parsed_arch, mc_num_dddict, mc_mask_dddict, params):
     `params` is the port's supernet tree: depth kernels are stacked OIHW
     [8, W, 1, 5, 5]. Each kernel is brought to the JAX package's
     [5, 5, 1, W] layout before the sum, so the norms, and the order of
-    channels with near-equal norms, are the JAX package's. Mutates and
-    returns mc_mask_dddict."""
+    channels with near-equal norms, are the JAX package's. A parsed ViT
+    candidate (op 8 of the hybrid space) ranks its MLP hidden units by the
+    L1 norm of their mlp_in columns. Mutates and returns mc_mask_dddict."""
     for stage in parsed_arch:
         for block in parsed_arch[stage]:
             op_idx = parsed_arch[stage][block]
             mask = np.asarray(mc_mask_dddict[stage][block][op_idx])
             mc_num = mc_num_dddict[stage][block][op_idx]
             if mc_num != int(round(float(mask.sum()))):
-                kernel = params[stage][block]["depth"]["kernel"][op_idx]
-                kernel = np.ascontiguousarray(np.transpose(
-                    kernel.detach().cpu().numpy(), (2, 3, 1, 0)))
-                l1 = np.abs(kernel[..., :mask.shape[0]]).sum(axis=(0, 1, 2))
+                bp = params[stage][block]
+                if op_idx >= len(bp["depth"]["kernel"]):
+                    # the hybrid space's ViT candidate: MLP hidden units
+                    # ranked by the L1 norm of their mlp_in columns
+                    # ([in, out] in both packages)
+                    kernel = bp["vit"]["mlp_in"]["kernel"]
+                    l1 = np.abs(kernel.detach().cpu().numpy()).sum(axis=0)
+                else:
+                    kernel = np.ascontiguousarray(np.transpose(
+                        bp["depth"]["kernel"][op_idx].detach().cpu().numpy(),
+                        (2, 3, 1, 0)))
+                    l1 = np.abs(kernel[..., :mask.shape[0]]).sum(
+                        axis=(0, 1, 2))
                 order_desc = np.argsort(l1)[::-1][:mc_num]
                 new_mask = np.zeros_like(mask)
                 new_mask[order_desc] = 1.0

@@ -184,7 +184,7 @@ class SearchStepFns(NamedTuple):
 def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
                       a_beta1=0.5, a_beta2=0.999, a_wd=5e-4, grad_clip=5.0,
                       lambda_lat=0.1, target_lat=15.0, lat_under_boost=1.0,
-                      capture=False, family=None):
+                      capture=False, family=None, valid_mask=None):
     """The step functions for SuperNetwork `net`:
 
     warmup_step(params, arch_params, mom, masks, update_masks, x, y, lr,
@@ -203,7 +203,11 @@ def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
     from a CUDA graph (search/compiled.py; their outputs are then static
     buffers that the next replay overwrites, so a caller that keeps a
     step's result clones it first). On the CPU they run eagerly.
-    family: the GraphFamily whose pool and buffers the graphs share."""
+    family: the GraphFamily whose pool and buffers the graphs share.
+    valid_mask: optional 0/1 [18, NUM_OPS] tensor of the candidate slots
+    each block offers (the hybrid conv/ViT space): invalid slots get zero
+    soft weight and the projection pins them to a sentinel. The hard draws
+    are arguments; make them with the same mask (search/bisample.py)."""
     del num_classes  # the logits carry it
 
     def _weight_update(params, mom, update_masks, grads, lr):
@@ -241,7 +245,7 @@ def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
 
         def loss_fn(a):
             w = gumbel_softmax_weights(a["log_alphas"], temperature,
-                                       gumbel_u)
+                                       gumbel_u, valid_mask)
             logits, lat = net.apply_soft(params, a, masks, x, w, lat_vec)
             lat = lat + base_lat
             loss_a = cross_entropy(logits, y)
@@ -258,7 +262,8 @@ def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
             arch_params, grads, opt_a, lr=a_lr, b1=a_beta1, b2=a_beta2,
             eps=1e-8, weight_decay=a_wd, grad_clip=grad_clip)
         arch_params = {
-            "log_alphas": project_log_softmax(arch_params["log_alphas"]),
+            "log_alphas": project_log_softmax(arch_params["log_alphas"],
+                                              valid_mask),
             "betas": {k: torch.log_softmax(v, dim=-1)
                       for k, v in arch_params["betas"].items()},
         }
@@ -306,6 +311,8 @@ def make_scanned_search_iter(net, *, num_classes, arch_every=2, steps=None,
     the injected draws (idx_g [K, arch_every, 18], idx_r [K, arch_every,
     18], gumbel_u [K, 18, 8]).
 
+    The generator's draws respect kw's valid_mask, as the steps do.
+
     steps: the SearchStepFns to run (default: make_search_steps(net, **kw);
     capture=True there replays each step from its graph on the card). The
     units are a host loop over those steps: on the card it enqueues
@@ -313,6 +320,7 @@ def make_scanned_search_iter(net, *, num_classes, arch_every=2, steps=None,
     dispatch, unlike the JAX package's scan over a remote device."""
     if steps is None:
         steps = make_search_steps(net, num_classes=num_classes, **kw)
+    valid = kw.get("valid_mask")
 
     def run(params, mom, arch_params, opt_a, masks, update_masks, xw, yw, xa,
             ya, lr, T, lat_vec, base_lat, draws):
@@ -323,8 +331,8 @@ def make_scanned_search_iter(net, *, num_classes, arch_every=2, steps=None,
             for j in range(arch_every):
                 if gen is not None:
                     ig = sample_gumbel_indices(arch_params["log_alphas"],
-                                               gen)
-                    ir = sample_random_excluding(ig, num_ops, gen)
+                                               gen, valid)
+                    ir = sample_random_excluding(ig, num_ops, gen, valid)
                 else:
                     ig, ir = draws[0][u, j], draws[1][u, j]
                 params, mom, m = steps.weight_step(

@@ -3,8 +3,10 @@
 
     python -m tfnas_tpu_torch.train_search --synthetic --save /tmp/search ...
 
-Same flags and defaults as the JAX driver for `--space mbconv` and
-`--space tiny`, plus `--device` (default cuda). Real lists (--img_root,
+Same flags and defaults as the JAX driver for `--space mbconv`, `--space
+hybrid` (the 9-op conv/ViT space: its LUT must hold the ViT keys, as
+`make_lat_lut --space hybrid` writes them) and `--space tiny`, plus
+`--device` (default cuda). Real lists (--img_root,
 --train_list, --val_list) go through ImageList (uint8 pixels), the threaded
 DataLoader and the card's prefetcher and are normalised on the card;
 --synthetic makes the JAX driver's numpy batches.
@@ -41,8 +43,10 @@ from .cost.lut import (build_space_analytic_lut, lat_vectors_for_mc,
 from .data import (DataLoader, DevicePrefetcher, ImageList, device_normalizer,
                    synthetic_loader)
 from .device import resolve_device
+from .models import hybrid_space as hs
 from .models import search_space as ss
 from .models.supernet import SuperNetwork
+from .models.supernet_hybrid import HybridSuperNetwork
 from .search.bisample import (gumbel_uniform, sample_gumbel_indices,
                               sample_random_excluding)
 from .search.elasticity import rewrite_masks_by_l1, shrink_or_expand
@@ -159,16 +163,18 @@ def make_loaders(args):
 
 class GeneratorDraws:
     """The driver's draws, from one torch.Generator: a weight step's gumbel
-    pick and its partner, an arch step's Gumbel uniform."""
+    pick and its partner, an arch step's Gumbel uniform. valid: the [18,
+    NUM_OPS] validity mask of the hybrid space (None: every slot)."""
 
-    def __init__(self, generator):
-        self.generator = generator
+    def __init__(self, generator, valid=None):
+        self.generator, self.valid = generator, valid
 
     def gumbel(self, log_alphas):
-        return sample_gumbel_indices(log_alphas, self.generator)
+        return sample_gumbel_indices(log_alphas, self.generator, self.valid)
 
     def partner(self, idx_g, num_ops):
-        return sample_random_excluding(idx_g, num_ops, self.generator)
+        return sample_random_excluding(idx_g, num_ops, self.generator,
+                                       self.valid)
 
     def uniform(self, shape):
         return gumbel_uniform(shape, self.generator)
@@ -388,34 +394,46 @@ def _mavg(a):
 
 def main(argv=None):
     args = parser.parse_args(argv)
-    if args.space == 'hybrid':
-        raise SystemExit("--space hybrid is not yet ported to PyTorch")
     if args.scan_units < 1:
         raise SystemExit("--scan_units must be at least 1")
     device = resolve_device(args.device)
-    train_iter, val_iter, full_val_iter = make_loaders(args)
-    run_dir = setup_experiment(args.save, 'search', args.note)
-    logging.info("args = %s", args)
-    logging.info("device: %s", device)
-
+    hybrid = args.space == 'hybrid'
     if args.space == 'tiny':
         space = ss.tiny_space(args.image_size)
         lat_lookup = build_space_analytic_lut(space)
     else:
-        space = ss
+        space = hs if hybrid else ss
         lat_lookup = load_lat_lookup(args.lookup_path)
     mc_mask_dddict = space.build_mc_mask_dddict()
     key_dddict = space.build_lat_lookup_key_dddict()
+    if hybrid:
+        missing = {key_dddict[st][b][hs.VIT_OP_IDX]
+                   for st in key_dddict for b in key_dddict[st]
+                   if hs.VIT_OP_IDX in key_dddict[st][b]} - set(lat_lookup)
+        if missing:
+            raise SystemExit(
+                f"--space hybrid needs ViT entries in the LUT; missing "
+                f"{sorted(missing)[:3]}... — regenerate with "
+                f"python -m tfnas_tpu_torch.make_lat_lut --space hybrid")
+    train_iter, val_iter, full_val_iter = make_loaders(args)
+    run_dir = setup_experiment(args.save, 'search', args.note)
+    logging.info("args = %s", args)
+    logging.info("device: %s", device)
     mc_maxnum_dddict = get_mc_num_dddict(mc_mask_dddict, is_max=True)
-    lv = lat_vectors_for_mc(lat_lookup, mc_maxnum_dddict, key_dddict)
+    lv = lat_vectors_for_mc(lat_lookup, mc_maxnum_dddict, key_dddict,
+                            space.NUM_OPS)
+    valid = hs.valid_op_mask() > 0 if hybrid else np.ones(lv.shape, bool)
     logging.info(
         "LUT '%s': base %.4f ms; full-depth max-width arch in [%.4f, %.4f] "
         "ms depending on ops; --target_lat %.4f",
         args.lookup_path if args.space != 'tiny' else 'analytic',
-        lat_lookup["base"], lat_lookup["base"] + lv.min(1).sum(),
+        lat_lookup["base"],
+        lat_lookup["base"] + np.where(valid, lv, np.inf).min(1).sum(),
         lat_lookup["base"] + lv.max(1).sum(), args.target_lat)
 
-    net = SuperNetwork(args.num_classes, space=space)
+    net = (HybridSuperNetwork(args.num_classes) if hybrid
+           else SuperNetwork(args.num_classes, space=space))
+    valid_mask = net.valid_mask(device) if hybrid else None
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params, arch_params = net.init(gen)
     start_epoch, T = 0, args.T
@@ -437,11 +455,11 @@ def main(argv=None):
             a_lr=args.a_lr, a_beta1=args.a_beta1, a_beta2=args.a_beta2,
             a_wd=args.a_wd, grad_clip=args.grad_clip,
             lambda_lat=args.lambda_lat, target_lat=args.target_lat,
-            lat_under_boost=args.lat_under_boost),
+            lat_under_boost=args.lat_under_boost, valid_mask=valid_mask),
         family=family,
         scan_units=args.scan_units if args.scan_units > 1 else None)
     del params, arch_params
-    draws = GeneratorDraws(gen)
+    draws = GeneratorDraws(gen, valid_mask)
     lr_list = cosine_lr_list(args.w_lr, args.epochs)
 
     def save_epoch(epoch, T, final=False):
