@@ -87,6 +87,21 @@ Phases, each printing one JSON line as soon as it ends:
    forward, folded bf16 images/s and its latency at batch 32. The
    kernel's checks of phase 2 cover the hybrid sites: their depthwise
    shapes are the MBConv sites'.
+10. parallel: the full-width MBConv Pareto search of G = 2 targets (4.5
+   and 6.0 ms on latency_pkl/latency_h100.pkl, batch 32 per group, 224^2,
+   100 classes, bf16; one card runs both groups in turn): captured against
+   eager steps bit for bit (cuDNN deterministic), each group's first
+   weight and arch step against a single search's step from the same
+   state and draws; the fused kernel nodes per replayed Pareto step at
+   both strides; eager and captured Pareto step ms in turns (per group
+   too) and peak memory; `train_search_pareto` for 2 epochs of 4 batches
+   (one warmup), captured and --eager, whose per-group pickles must be
+   the same bytes; a G = 4 run of one epoch of 2 batches for its peak
+   memory; then a 1-rank NCCL process group: the TF-NAS-A data-parallel
+   train step (batch 256, bf16) and one Pareto weight and arch step of one
+   group with the group against group=None, eagerly and replayed from CUDA
+   graphs (the collectives inside them), bit for bit, and the graphs'
+   replay ms with and without the group, in turns.
 
 The line before the last holds the kernels' summary; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -115,6 +130,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 TARGET_LAT = 0.25           # ms, inside latency_tpu.pkl's range
 HYBRID_TARGET_LAT = 4.5     # ms, inside latency_h100_hybrid.pkl's range
+PARETO_TARGETS = (4.5, 6.0)  # ms, inside latency_h100.pkl's 4.193-7.350
 FLUSH_BYTES = 128 << 20     # written between launches for the cold-L2 time
 # ragged shapes the main path does not reach: (N, H, W, C); C 30 and 194
 # take the channel-pair copies in both dtypes, 200 the 16-byte ones
@@ -573,6 +589,17 @@ def _events_ms(torch, fn, n):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / n
+
+
+def _counted(fused_dw, into, fn, *args):
+    """fn(*args), adding the fused kernel launches that this call alone
+    made, by stride, to `into` (a capture's warm-ups and other calls in
+    between stay out of the count)."""
+    before = dict(fused_dw.launches)
+    out = fn(*args)
+    for stride, n in fused_dw.launches.items():
+        into[stride] = into.get(stride, 0) + n - before[stride]
+    return out
 
 
 _FUSED_STRIDE = (r"fused_dw_kernel(?:I\w*?Li([12])E|<[^,>]*,\s*"
@@ -1315,10 +1342,11 @@ def phase_hybrid(torch, fused_dw, tmpdir):
         return {"params": p, "mom": mo}, m
 
     failures = []
+    launches = {}   # the eager steps' own launches, by stride
 
     def check(kind, i, tag):
         snap = _clone(torch, state)
-        want, wm = call(eager, kind, snap, i)
+        want, wm = _counted(fused_dw, launches, call, eager, kind, snap, i)
         del snap
         got, gm = call(capt, kind, state, i)
         errs = {k: _tree_err(torch, got[k], want[k]) for k in got}
@@ -1333,11 +1361,10 @@ def phase_hybrid(torch, fused_dw, tmpdir):
         for k, v in got.items():
             state[k] = v
 
-    # the main path: every count at 0, eager and captured steps, read after
+    # the main path: eager and captured steps; each eager call counted
     fused_dw.reset_launches()
     for i, kind in enumerate(("warmup", "weight", "arch", "weight", "arch")):
         check(kind, i, "start")
-    launches = dict(fused_dw.launches)
     graphs = {g.name: g for g in fam.graphs}
     nodes = {n: dict(g.nodes) for n, g in graphs.items()}
     emit({"phase": "hybrid", "step": "graphs",
@@ -1485,6 +1512,347 @@ def phase_hybrid(torch, fused_dw, tmpdir):
     return launches, nodes, counts["captured"]["replayed"]
 
 
+# -- phase 10 -----------------------------------------------------------------
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_parallel(torch, fused_dw, tmpdir):
+    """The Pareto search and data parallelism on the card: the full-width
+    MBConv Pareto steps of G = 2 targets (one card holds both groups and
+    runs them in turn) captured against eager bit for bit, each group's
+    steps against a single search's step from the same state and draws,
+    step ms in turns and peak memory; the train_search_pareto driver
+    captured and --eager (equal per-group pickles); then a 1-rank NCCL
+    process group: the TF-NAS-A data-parallel train step and one Pareto
+    weight and arch step with the group against group=None, eager and
+    captured, bit for bit. Returns (eager launches by stride, fused nodes
+    per replayed Pareto step by kind, the driver's replayed launches)."""
+    import torch.distributed as dist
+    from tfnas_tpu_torch import train_search_pareto
+    from tfnas_tpu_torch.cost.lut import lat_vectors_for_mc, load_lat_lookup
+    from tfnas_tpu_torch.data.synthetic import device_batches
+    from tfnas_tpu_torch.models import search_space as ss
+    from tfnas_tpu_torch.models.eval_net import EvalNetwork
+    from tfnas_tpu_torch.models.supernet import SuperNetwork
+    from tfnas_tpu_torch.parallel import pareto, train_dp
+    from tfnas_tpu_torch.parallel.mesh import ParetoMesh, make_mesh, pair_seed
+    from tfnas_tpu_torch.search.bisample import (gumbel_uniform,
+                                                 sample_gumbel_indices,
+                                                 sample_random_excluding)
+    from tfnas_tpu_torch.search.compiled import GraphedFn, GraphFamily
+    from tfnas_tpu_torch.search.parser import get_mc_num_dddict
+    from tfnas_tpu_torch.search.train_step import make_search_steps
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    lut_path = os.path.join(here, "latency_pkl", "latency_h100.pkl")
+    _release(torch)
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    dev = torch.device("cuda")
+    lut = load_lat_lookup(lut_path)
+    keys = ss.build_lat_lookup_key_dddict()
+    G = len(PARETO_TARGETS)
+    failures = []
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+
+    def group_inputs(net, groups, fam):
+        """The state and step inputs of `groups` (initial widths), in
+        fam's static buffers when fam is given."""
+        st = pareto.init_pareto_state(net, [
+            torch.Generator(device=dev).manual_seed(pair_seed(2, g))
+            for g in groups])
+        mc = ss.build_mc_mask_dddict()
+        lat = torch.from_numpy(lat_vectors_for_mc(
+            lut, get_mc_num_dddict(mc), keys, ss.NUM_OPS)).to(dev)
+        inp = {"state": st,
+               "masks": [net.device_masks(mc, dev) for _ in groups],
+               "umasks": [net.update_masks(p, mc) for p in st.params],
+               "lat": [lat.clone() for _ in groups],
+               "lr": [torch.tensor(0.025, device=dev) for _ in groups],
+               "T": [torch.tensor(5.0, device=dev) for _ in groups],
+               "base": torch.tensor(float(lut["base"]), device=dev)}
+        return inp if fam is None else fam.adopt(inp)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    data = device_batches(BATCH, 2 * 6, gen, 100, 224, torch.bfloat16)
+    flat = [next(data) for _ in range(2 * 6)]
+    batches = [(torch.stack([flat[2 * i][0], flat[2 * i + 1][0]]),
+                torch.stack([flat[2 * i][1], flat[2 * i + 1][1]]))
+               for i in range(6)]
+    del flat
+
+    def draws(st, i, kind):
+        """Group j's draws of call i: its own generator, as the driver's
+        are seeded by the group."""
+        out = []
+        for j, a in enumerate(st.arch_params):
+            g = torch.Generator(device=dev).manual_seed(300 + 10 * i + j)
+            la = a["log_alphas"]
+            if kind == "weight":
+                ig = sample_gumbel_indices(la, g)
+                out.append((ig, sample_random_excluding(ig, ss.NUM_OPS, g)))
+            else:
+                out.append(gumbel_uniform(la.shape, g))
+        return out
+
+    def call(steps, kind, s, i):
+        x, y = batches[i]
+        d = draws(s["state"], i, kind)
+        if kind == "weight":
+            st, m = steps[0](s["state"], s["masks"], s["umasks"], x, y,
+                             s["lr"], d)
+        else:
+            st, m = steps[1](s["state"], s["masks"], x, y, s["lat"],
+                             s["base"], s["T"], d)
+        return st, m, d
+
+    # G = 2 on one card: captured against eager, every count at 0 first
+    t0 = time.perf_counter()
+    net = SuperNetwork(100)
+    mesh = make_mesh(1, G, 0)
+    fam = GraphFamily(dev)
+    s = group_inputs(net, mesh.local_groups, fam)
+    kw = dict(num_classes=100, targets=PARETO_TARGETS)
+    eager = pareto.make_pareto_search_steps(net, mesh, **kw)
+    capt = pareto.make_pareto_search_steps(net, mesh, capture=True,
+                                           family=fam, **kw)
+    torch.cuda.synchronize()
+    emit({"phase": "parallel", "step": "setup", "groups": G,
+          "targets_ms": list(PARETO_TARGETS), "init_s":
+          time.perf_counter() - t0, "lut": os.path.relpath(lut_path, here),
+          "mem_GB_state": (torch.cuda.memory_allocated() - mem0) / 1e9})
+    fused_dw.reset_launches()
+    launches = {}   # the eager Pareto steps' own launches, by stride
+    for i, kind in enumerate(("weight", "arch", "weight", "arch")):
+        snap = _clone(torch, s)
+        est, em, d = _counted(fused_dw, launches, call, eager, kind, snap, i)
+        cst, cm, _ = call(capt, kind, s, i)
+        errs = [_tree_err(torch, [f[j] for f in est], [f[j] for f in cst])
+                for j in range(G)]
+        rec = {"phase": "parallel", "step": kind, "call": i,
+               "max_abs_err_by_group": errs,
+               "metrics_err": _tree_err(torch, em, cm),
+               "loss": (cm.get("loss", cm.get("loss_a"))).tolist()}
+        if i < 2:
+            # each group against one search's step from the same state
+            single = []
+            for j, g in enumerate(mesh.local_groups):
+                one = make_search_steps(net, num_classes=100,
+                                        target_lat=PARETO_TARGETS[g])
+                ss_ = snap["state"]
+                if kind == "weight":
+                    p, mo, _ = one.weight_step(
+                        ss_.params[j], ss_.arch_params[j], ss_.momentum[j],
+                        snap["masks"][j], snap["umasks"][j],
+                        batches[i][0][j], batches[i][1][j], snap["lr"][j],
+                        *d[j])
+                    single.append(_tree_err(torch, [p, mo], [
+                        est.params[j], est.momentum[j]]))
+                else:
+                    a, o, _ = one.arch_step(
+                        ss_.params[j], ss_.arch_params[j], ss_.opt_a[j],
+                        snap["masks"][j], batches[i][0][j],
+                        batches[i][1][j], snap["lat"][j], snap["base"],
+                        snap["T"][j], d[j])
+                    single.append(_tree_err(torch, [a, o], [
+                        est.arch_params[j], est.opt_a[j]]))
+            rec["single_search_err_by_group"] = single
+            if max(single) != 0.0:
+                failures.append(rec)
+        del snap, est, em
+        emit(rec)
+        if not (max(errs) == 0.0 and rec["metrics_err"] == 0.0
+                and all(math.isfinite(v) for v in rec["loss"])):
+            failures.append(rec)
+        s["state"] = cst
+    nodes = {k: {st: sum(gr.nodes[st] for gr in fam.graphs
+                         if gr.name == f"{k}_step") for st in (1, 2)}
+             for k in ("weight", "arch")}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "parallel", "step": "graphs",
+          "graphs": [gr.name for gr in fam.graphs],
+          "build_s": [gr.build_s for gr in fam.graphs],
+          "fused_nodes_per_pareto_step": nodes, "eager_launches": launches,
+          "replayed": dict(fused_dw.replayed), "peak_mem_GB": peak})
+    for k, n in nodes.items():
+        if not (n[1] and n[2]):
+            failures.append(f"captured Pareto {k} step: fused nodes {n}")
+
+    # eager and captured Pareto step ms (both groups), in turns
+    times = collections.defaultdict(list)
+    est = _clone(torch, s)
+    for kind in ("weight", "arch"):
+        for mode in ("eager", "captured", "captured", "eager"):
+            st_in, steps = (est, eager) if mode == "eager" else (s, capt)
+
+            def once():
+                st_in["state"] = call(steps, kind, st_in, 5)[0]
+            once()
+            times[(kind, mode)].append(_events_ms(torch, once, 3))
+    emit({"phase": "parallel", "step": "times_ms", "groups": G,
+          **{f"{k}_{m}": v for (k, m), v in times.items()},
+          **{f"{k}_{m}_per_group": [t / G for t in v]
+             for (k, m), v in times.items()},
+          "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+    del est, s, eager, capt, fam
+    _release(torch)
+
+    # the driver, captured and --eager: the same per-group pickles
+    runs, counts = {}, {}
+    for mode in ("captured", "eager"):
+        fused_dw.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        run = train_search_pareto.main([
+            "--synthetic", "--target_lats",
+            ",".join(str(v) for v in PARETO_TARGETS), "--epochs", "2",
+            "--warmup_epochs", "1", "--steps_per_epoch", "4",
+            "--batch_size", str(BATCH), "--print_freq", "2",
+            "--lookup_path", lut_path,
+            "--save", os.path.join(tmpdir, f"pareto_{mode}")]
+            + (["--eager"] if mode == "eager" else []))
+        runs[mode] = (run, time.perf_counter() - t,
+                      torch.cuda.max_memory_allocated() / 1e9,
+                      torch.cuda.max_memory_reserved() / 1e9)
+        counts[mode] = {"launches": dict(fused_dw.launches),
+                        "replayed": dict(fused_dw.replayed)}
+        _release(torch)
+    same = {}
+    for name in sorted(os.listdir(runs["eager"][0])):
+        if name.endswith(".pkl"):
+            with open(os.path.join(runs["captured"][0], name), "rb") as f:
+                a = f.read()
+            with open(os.path.join(runs["eager"][0], name), "rb") as f:
+                same[name] = a == f.read()
+    rec = {"phase": "parallel", "step": "driver", "epochs": 2,
+           "seconds": {m: r[1] for m, r in runs.items()},
+           "peak_mem_GB": {m: r[2] for m, r in runs.items()},
+           "peak_reserved_GB": {m: r[3] for m, r in runs.items()},
+           "fused_dw_counts": counts, "pickles_bytes_identical": same}
+    emit(rec)
+    for mode in runs:
+        shutil.rmtree(runs[mode][0])
+    if not (len(same) == 2 * G and all(same.values())):
+        failures.append(rec)
+    if not (counts["captured"]["replayed"].get(1)
+            and counts["captured"]["replayed"].get(2)):
+        failures.append(f"the captured Pareto driver replayed no fused "
+                        f"kernel of some stride: {counts}")
+    # G = 4 on the card: does it fit? (one epoch of 2 batches, with arch
+    # steps)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    run = train_search_pareto.main([
+        "--synthetic", "--target_lats", "4.5,5.0,5.5,6.0", "--epochs", "1",
+        "--warmup_epochs", "0", "--steps_per_epoch", "2", "--batch_size",
+        str(BATCH), "--print_freq", "2", "--lookup_path", lut_path,
+        "--save", os.path.join(tmpdir, "pareto_g4")])
+    emit({"phase": "parallel", "step": "driver_g4", "groups": 4,
+          "seconds": time.perf_counter() - t,
+          "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+          "peak_reserved_GB": torch.cuda.max_memory_reserved() / 1e9,
+          "pickles": sorted(os.listdir(run))})
+    shutil.rmtree(run)
+    _release(torch)
+
+    # a 1-rank NCCL process group against group=None. The group is left
+    # only after every graph holding its collectives is freed (the checks'
+    # locals); a failure raises with them alive and the process exits.
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    world = dist.group.WORLD
+
+    def nccl_checks():
+        with open(os.path.join(here, "configs", "tfnas_a_tpu.config")) as f:
+            enet = EvalNetwork.from_config(1000, json.load(f), 0.2, 0.2)
+        g = torch.Generator(device=dev).manual_seed(11)
+        st0 = train_dp.init_eval_train_state(enet, g)
+        x, y = next(device_batches(EVAL_BATCH, 1, g, 1000, 224,
+                                   torch.bfloat16))
+        keep = enet.draw_keep(EVAL_BATCH, g)
+
+        def fresh():
+            return train_dp.EvalTrainState(*(
+                _clone(torch, t) for t in st0[:3]), 0)
+
+        dp, dp_graphs = {}, {}
+        for name, group in (("none", None), ("nccl", world)):
+            train, _ = train_dp.make_eval_steps(enet, num_classes=1000,
+                                                group=group)
+            graphed = GraphedFn(GraphFamily(dev), train, {0: 0},
+                                f"dp_train_{name}")
+            for mode, fn in (("eager", train), ("captured", graphed)):
+                new, m = fn(fresh(), x, y, 0.1, keep)
+                dp[(name, mode)] = _clone(torch, [new[:3], m])
+            dp_graphs[name] = graphed
+            del new, m
+        dp_err = {m: _tree_err(torch, dp[("none", m)], dp[("nccl", m)])
+                  for m in ("eager", "captured")}
+        # the collectives' cost: replays of the two graphs in turns
+        dp_ms = collections.defaultdict(list)
+        for name in ("none", "nccl", "nccl", "none"):
+            dp_ms[name].append(_events_ms(
+                torch, dp_graphs[name].graph.replay, 3))
+        del dp, dp_graphs, graphed, train, st0
+        _release(torch)
+
+        # one Pareto weight and arch step of one group
+        mesh0 = make_mesh(1, 1, 0)
+        meshn = ParetoMesh(1, (0,), world, 0, 1)
+        base = group_inputs(SuperNetwork(100), (0,), None)
+        par, fams = {}, {}
+        for mode in ("eager", "captured"):
+            for name, m_ in (("none", mesh0), ("nccl", meshn)):
+                pfam = GraphFamily(dev) if mode == "captured" else None
+                pnet = SuperNetwork(100, bn_group=m_.data_group)
+                steps = pareto.make_pareto_search_steps(
+                    pnet, m_, num_classes=100, targets=PARETO_TARGETS[:1],
+                    capture=pfam is not None, family=pfam)
+                st_in = _clone(torch, base)
+                if pfam is not None:
+                    st_in = pfam.adopt(st_in)
+                    fams[name] = pfam
+                st_in["state"], wm, _ = call(steps, "weight", st_in, 0)
+                st_in["state"], am, _ = call(steps, "arch", st_in, 1)
+                par[(name, mode)] = _clone(torch, [st_in["state"], wm, am])
+                del steps, st_in, pfam
+        par_err = {m: _tree_err(torch, par[("none", m)], par[("nccl", m)])
+                   for m in ("eager", "captured")}
+        par_ms = collections.defaultdict(list)
+        for kind in ("weight_step", "arch_step"):
+            for name in ("none", "nccl", "nccl", "none"):
+                gr = next(g for g in fams[name].graphs if g.name == kind)
+                par_ms[f"{kind}_{name}"].append(_events_ms(
+                    torch, gr.graph.replay, 3))
+        return dp_err, par_err, dp_ms, par_ms
+
+    dp_err, par_err, dp_ms, par_ms = nccl_checks()
+    _release(torch)
+    dist.destroy_process_group()
+    rec = {"phase": "parallel", "step": "nccl_one_rank",
+           "dp_train_step_tfnas_a_err": dp_err,
+           "pareto_weight_arch_err": par_err,
+           "captured_ms_in_turns": {"dp_train_tfnas_a_bs256": dict(dp_ms),
+                                    **par_ms},
+           "bit_identical": max(list(dp_err.values())
+                                + list(par_err.values())) == 0.0}
+    emit(rec)
+    if not rec["bit_identical"]:
+        failures.append(rec)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    _release(torch)
+    if failures:
+        raise AssertionError(f"parallel phase: {failures}")
+    return launches, nodes, counts["captured"]["replayed"]
+
+
 def _profile_summary(step, path):
     """What the card did inside the profiled step's window (the host range
     'step', which ends after a synchronize): busy share, the fused kernel's
@@ -1573,6 +1941,8 @@ def main():
             raise AssertionError("the eval path launched the fused kernel")
         hyb_launches, hyb_nodes, hyb_replayed = phase_hybrid(
             torch, fused_dw, tmpdir)
+        par_launches, par_nodes, par_replayed = phase_parallel(
+            torch, fused_dw, tmpdir)
     for stride, n in launches.items():
         if n == 0:
             raise AssertionError(f"stride-{stride} kernel never launched on "
@@ -1581,6 +1951,9 @@ def main():
         if not (hyb_launches.get(stride) and hyb_replayed.get(stride)):
             raise AssertionError(f"stride-{stride} kernel never launched on "
                                  f"the hybrid path")
+        if not (par_launches.get(stride) and par_replayed.get(stride)):
+            raise AssertionError(f"stride-{stride} kernel never launched on "
+                                 f"the Pareto path")
 
     kernels = []
     for stride, name, replaces in (
@@ -1617,6 +1990,12 @@ def main():
                 for k in ("warmup", "weight", "arch")},
             "hybrid_eager_launches": hyb_launches[stride],
             "replayed_launches_hybrid_driver": hyb_replayed[stride],
+            # the Pareto search (G = 2): nodes per replayed step of both
+            # groups, its eager steps' launches and its driver's replays
+            "launches_per_replayed_pareto_step": {
+                k: par_nodes[k][stride] for k in ("weight", "arch")},
+            "pareto_eager_launches": par_launches[stride],
+            "replayed_launches_pareto_driver": par_replayed[stride],
             "captured_step_device_ms": {
                 k: cprof[k]["fused_dw_ms_by_stride"].get(stride, 0.0)
                 for k in ("weight", "arch")}})

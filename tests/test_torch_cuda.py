@@ -667,3 +667,116 @@ def test_hybrid_captured_matches_eager_across_a_vit_rewrite(deterministic):
         for s in me:
             for b in me[s]:
                 assert np.array_equal(me[s][b], mc[s][b])
+
+
+def _pareto_inputs(net, dev, seed=0):
+    """The state and step inputs of G = 2 tiny-space groups on `dev`."""
+    from tfnas_tpu_torch.parallel import pareto
+    from tfnas_tpu_torch.search.train_step import adam_init, zeros_like_tree
+    mc = net.ss.build_mc_mask_dddict()
+    inits = [net.init(torch.Generator().manual_seed(seed + g))
+             for g in range(2)]
+    params = [_to(p, dev) for p, _ in inits]
+    arch = [_to(a, dev) for _, a in inits]
+    st = pareto.ParetoSearchState(params, arch,
+                                  [zeros_like_tree(p) for p in params],
+                                  [adam_init(a) for a in arch])
+    g = torch.Generator().manual_seed(seed + 7)
+    return {"state": st,
+            "masks": [net.device_masks(mc, dev) for _ in range(2)],
+            "umasks": [net.update_masks(p, mc) for p in st.params],
+            "lat": [(torch.rand((3, 8), generator=g) * 0.01).to(dev)
+                    for _ in range(2)],
+            "x": torch.randn((2, 4, 32, 32, 3), generator=g).to(dev),
+            "y": torch.randint(0, 10, (2, 4), generator=g).to(dev),
+            "ig": [torch.randint(0, 8, (3,), generator=g).to(dev)
+                   for _ in range(2)],
+            "u": [torch.rand((3, 8), generator=g).clamp_min(1e-6).to(dev)
+                  for _ in range(2)]}
+
+
+def _pareto_pair(steps, inp):
+    """One Pareto weight step and one arch step of the groups: the leaves
+    of the new state and metrics, on the CPU."""
+    from tfnas_tpu_torch.search.compiled import leaves_of
+    weight, arch = steps
+    d = [(ig, (ig + 1) % 8) for ig in inp["ig"]]
+    st, wm = weight(inp["state"], inp["masks"], inp["umasks"], inp["x"],
+                    inp["y"], 0.025, d)
+    st, am = arch(st, inp["masks"], inp["x"], inp["y"], inp["lat"], 0.004,
+                  [5.0, 4.0], inp["u"])
+    return [t.cpu() for t in leaves_of([st, wm, am])]
+
+
+def test_pareto_steps_on_card_match_cpu(cuda):
+    """A Pareto weight and arch step of G = 2 tiny-space groups (targets
+    0.02 and 0.03 ms) on the card against the CPU: 1e-4, f32, TF32 off."""
+    from tfnas_tpu_torch.parallel import pareto
+    from tfnas_tpu_torch.parallel.mesh import make_mesh
+    net = SuperNetwork(10, space=tss.tiny_space(32))
+    steps = pareto.make_pareto_search_steps(
+        net, make_mesh(1, 2, 0), num_classes=10, targets=[0.02, 0.03])
+    before = sum(tfused.launches.values())
+    outs = [_pareto_pair(steps, _pareto_inputs(net, dev))
+            for dev in ("cpu", cuda)]
+    assert sum(tfused.launches.values()) - before == 2 * (6 + 3)
+    for c, k in zip(*outs):
+        torch.testing.assert_close(k, c, rtol=1e-4, atol=1e-4)
+
+
+def _nccl_checks(dev, world):
+    from tfnas_tpu_torch.parallel import pareto, train_dp
+    from tfnas_tpu_torch.parallel.mesh import ParetoMesh
+    from tfnas_tpu_torch.search.compiled import GraphedFn, GraphFamily
+    enet, *rest = _eval_net()
+    params, bn, x, y = _to(rest, dev)
+    keep = enet.draw_keep(len(y), torch.Generator(device=dev).manual_seed(2))
+    out = {}
+    for name, group in (("none", None), ("nccl", world)):
+        train, _ = train_dp.make_eval_steps(
+            enet, num_classes=10, compute_dtype=torch.float32, group=group)
+        graphed = GraphedFn(GraphFamily(dev), train, {0: 0}, name)
+        for mode, fn in (("eager", train), ("captured", graphed)):
+            st = train_dp.EvalTrainState(
+                params, bn, tree_map(torch.zeros_like, params), 0)
+            new, m = fn(st, x, y, 0.1, keep)
+            out[(name, mode)] = _to([new[:3], m], "cpu")
+    for mode in ("eager", "captured"):
+        _assert_trees_equal(out[("nccl", mode)], out[("none", mode)])
+
+    for mode in ("eager", "captured"):
+        res = {}
+        for name, mesh in (("none", ParetoMesh(1, (0,), None, 0, 1)),
+                           ("nccl", ParetoMesh(1, (0,), world, 0, 1))):
+            net = SuperNetwork(10, space=tss.tiny_space(32),
+                               bn_group=mesh.data_group)
+            fam = GraphFamily(dev) if mode == "captured" else None
+            steps = pareto.make_pareto_search_steps(
+                net, mesh, num_classes=10, targets=[0.02],
+                capture=fam is not None, family=fam)
+            inp = _pareto_inputs(net, dev)
+            inp = {k: v[:1] if isinstance(v, list) else v
+                   for k, v in inp.items()}
+            inp["state"] = pareto.ParetoSearchState(
+                *(f[:1] for f in inp["state"]))
+            res[name] = _pareto_pair(steps, inp)
+        _assert_trees_equal(res["nccl"], res["none"])
+
+
+def test_one_rank_nccl_group_matches_no_group(deterministic):
+    """A 1-rank NCCL process group: the eval train step and the Pareto
+    steps with the group (cross-replica BN and the gradient all-reduce,
+    inside the CUDA graphs when captured) equal the same steps without a
+    group, bit for bit, eager and captured. The group is left once the
+    graphs holding its collectives are freed (a failure leaves it)."""
+    import gc
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    _nccl_checks(deterministic, dist.group.WORLD)
+    gc.collect()
+    dist.destroy_process_group()

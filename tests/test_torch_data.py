@@ -128,6 +128,21 @@ def test_imagelist_host_shard_and_drop_last(image_list):
         til.ImageList(root, os.path.join(root, "missing.txt"), False)
 
 
+def test_loader_rows_load_those_entries_alone(image_list):
+    """rows picks positions of each batch: the entries and the decoded
+    (val) images of the full batch at those positions, in that order."""
+    root, lst = image_list
+    ds = til.ImageList(root, lst, False, image_size=32)
+    full = list(til.DataLoader(ds, 4, num_workers=1, seed=1))
+    part = list(til.DataLoader(ds, 4, num_workers=1, seed=1, rows=[3, 1]))
+    assert len(part) == len(full) == 2
+    for (xf, yf), (xp, yp) in zip(full, part):
+        np.testing.assert_array_equal(yp, yf[[3, 1]])
+        np.testing.assert_array_equal(xp, xf[[3, 1]])
+    with pytest.raises(ValueError):
+        til.DataLoader(ds, 4, drop_last=False, rows=[0])
+
+
 def test_loader_raises_what_a_batch_raised(image_list, tmp_path):
     root, _ = image_list
     lst = tmp_path / "bad.txt"

@@ -9,6 +9,11 @@ masks, and the whole `vit` subtree of the hybrid space: [in, out] linear
 kernels, biases, LayerNorm parameters) is copied as it is. Keys and nesting are the same in both trees, so
 the same two functions carry eval-network parameters, BN state and
 momentum (the folded stem's [2, 2, 4C, O] kernel included) both ways.
+
+The JAX Pareto search stacks its G groups' trees into one tree of [G, ...]
+leaves; the port keeps one tree per group. `stack_group_trees` and
+`unstack_group_tree` go between the two (numpy leaves, per-group trees in
+either package's layout: convert each group's tree on its own).
 """
 
 from __future__ import annotations
@@ -27,6 +32,27 @@ def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
     return fn(tree)
+
+
+def _host(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def stack_group_trees(trees):
+    """[tree_g for g in G] -> one tree of [G, ...] numpy leaves."""
+    if isinstance(trees[0], dict):
+        return {k: stack_group_trees([t[k] for t in trees])
+                for k in trees[0]}
+    return np.stack([_host(t) for t in trees])
+
+
+def unstack_group_tree(tree):
+    """One tree of [G, ...] leaves -> [tree_g for g in G] (numpy)."""
+    first = tree
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    return [_map(tree, lambda a, g=g: _host(a)[g]) for g in range(len(first))]
 
 
 def params_from_jax(tree, device="cpu"):

@@ -82,7 +82,8 @@ class ImageList:
     are normalised on the card by transforms.device_normalizer (4x fewer
     bytes to the card than the JAX package's float32 mode, which the port
     does not keep). host_shard=(i, n): this host's share of a list padded
-    by wrapping to a multiple of n. rrc_scale: RandomResizedCrop's area
+    by wrapping to a multiple of n; its first `num_real` entries are the
+    list's own, the rest wrap padding. rrc_scale: RandomResizedCrop's area
     range."""
 
     def __init__(self, root, list_path, training, image_size=224,
@@ -90,10 +91,12 @@ class ImageList:
                  host_shard=None, rrc_scale=(0.08, 1.0)):
         self.root = root
         self.img_list = list_reader(list_path)
+        self.num_real = len(self.img_list)
         if host_shard is not None and host_shard[1] > 1:
             i, n = host_shard
             total = -(-len(self.img_list) // n) * n
             padded = self.img_list + self.img_list[:total - len(self.img_list)]
+            self.num_real = len(range(i, len(self.img_list), n))
             self.img_list = padded[i::n]
         self.training = training
         self.image_size = image_size
@@ -155,10 +158,22 @@ class DataLoader:
 
     pad_last (with drop_last=False) pads the final short batch to
     batch_size by repeating its last entry and yields (x, y, n_valid), so
-    metrics can mask the padding and every sample is scored once."""
+    metrics can mask the padding and every sample is scored once. The wrap
+    padding of a host shard (entries from the dataset's `num_real` on)
+    counts as padding too: in an unshuffled order it ends the last
+    batches.
+
+    rows: the positions within each batch to load, in this order (None:
+    all); the others are never read or decoded. The batches' entries stay
+    those of the full batch_size, but the augmentation draws follow the
+    rows loaded."""
 
     def __init__(self, dataset, batch_size, shuffle=True, num_workers=4,
-                 seed=0, drop_last=True, prefetch=4, pad_last=False):
+                 seed=0, drop_last=True, prefetch=4, pad_last=False,
+                 rows=None):
+        if rows is not None and not drop_last:
+            raise ValueError("rows needs full batches (drop_last)")
+        self.rows = None if rows is None else np.asarray(rows)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -184,15 +199,18 @@ class DataLoader:
         if self.shuffle:
             rng.shuffle(order)
         nb = len(self)
+        real = getattr(self.dataset, "num_real", len(self.dataset))
         q = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
         def load_batch(bi):
             idxs = order[bi * self.batch_size:(bi + 1) * self.batch_size]
-            n_valid = len(idxs)
-            if self.pad_last and n_valid < self.batch_size:
+            n_valid = int(np.sum(idxs < real))
+            if self.pad_last and len(idxs) < self.batch_size:
                 idxs = np.concatenate(
-                    [idxs, np.full(self.batch_size - n_valid, idxs[-1])])
+                    [idxs, np.full(self.batch_size - len(idxs), idxs[-1])])
+            if self.rows is not None:
+                idxs = idxs[self.rows]
             sub = np.random.default_rng((self.seed, self.epoch, bi))
             xs, ys = self.dataset.get_batch([int(i) for i in idxs], sub)
             return (xs, ys, n_valid) if self.pad_last else (xs, ys)

@@ -195,19 +195,21 @@ class EvalNetwork:
             keep.append(None)
         return keep
 
-    def apply(self, params, state, x, *, training=False, keep=None):
+    def apply(self, params, state, x, *, training=False, keep=None,
+              bn_group=None):
         """Forward of [N, H, W, 3] x. Returns (logits, new_state). keep: the
         draws of `draw_keep` (or the JAX package's, converted); without
-        them nothing is dropped."""
+        them nothing is dropped. bn_group: the process group of
+        cross-replica BN (training only)."""
         new_state = {}
         keep = keep if keep is not None else [None] * (self.block_count + 1)
         x = x.permute(0, 3, 1, 2)
         x, new_state["first_stem"] = self.first_stem.apply(
             params["first_stem"], state.get("first_stem", {}), x,
-            training=training)
+            training=training, bn_group=bn_group)
         x, new_state["second_stem"] = self.second_stem.apply(
             params["second_stem"], state.get("second_stem", {}), x,
-            training=training, keep=keep[0])
+            training=training, keep=keep[0], bn_group=bn_group)
         r = 1
         for stage, blocks in self.stages.items():
             st = {}
@@ -215,12 +217,12 @@ class EvalNetwork:
                 bn = f"block{i + 1}"
                 x, st[bn] = block.apply(
                     params[stage][bn], state.get(stage, {}).get(bn, {}), x,
-                    training=training, keep=keep[r])
+                    training=training, keep=keep[r], bn_group=bn_group)
                 r += 1
             new_state[stage] = st
         x, new_state["feature_mix_layer"] = self.feature_mix_layer.apply(
             params["feature_mix_layer"], state.get("feature_mix_layer", {}),
-            x, training=training)
+            x, training=training, bn_group=bn_group)
         x = x.mean(dim=(2, 3))  # global average pool
         mask = keep[-1]
         if self.dropout_rate > 0.0 and training and mask is not None:
@@ -228,7 +230,7 @@ class EvalNetwork:
                             torch.zeros((), dtype=x.dtype, device=x.device))
         x, new_state["classifier"] = self.classifier.apply(
             params["classifier"], state.get("classifier", {}), x,
-            training=training)
+            training=training, bn_group=bn_group)
         return x, new_state
 
     # -- analysis ----------------------------------------------------------

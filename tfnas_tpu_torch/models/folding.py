@@ -114,8 +114,8 @@ class SpaceToDepthStem:
 
     name = "SpaceToDepthStem"
 
-    def apply(self, params, state, x, *, training=False):
-        del training
+    def apply(self, params, state, x, *, training=False, bn_group=None):
+        del training, bn_group  # no BN: it is folded in
         n, c, h, w = x.shape
         if h % 2 or w % 2:
             raise ValueError("the s2d stem needs even input sizes")

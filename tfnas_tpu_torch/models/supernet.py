@@ -16,6 +16,12 @@ Public forwards take x as [N, H, W, C]; inside, activations are logical NCHW
 (channels_last in memory when x is contiguous NHWC). The depthwise middle of
 every block runs through `fused_dw_norm_act`, which launches the
 hand-written CUDA kernel for tensors on the card.
+
+bn_group: the process group of cross-replica BN when the search itself
+runs data-parallel (the ranks of one Pareto group). Every BN then takes its
+statistics over the group's global batch: the depthwise middle sums its two
+pairs of per-channel sums over the ranks, the kernel's own output sums
+included, and the other BNs go through ops/batchnorm.py with the group.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from ..ops.activations import apply_act
 from ..ops.batchnorm import BN_EPS, batch_norm, stat_dtype
 from ..ops.conv import init_conv_kernel, torch_uniform_init
 from ..ops.layers import ConvLayer, LinearLayer, MBInvertedResBlock
+from ..parallel.mesh import all_reduce_sum, group_size
 from . import search_space as ss
 
 KMAX = 5  # canonical depthwise tap size (k3 kernels zero-padded)
@@ -98,9 +105,10 @@ def _take(t, idx):
 class SuperNetwork:
     """Supernet over the TF-NAS space (or a make_space namespace)."""
 
-    def __init__(self, num_classes, space=None):
+    def __init__(self, num_classes, space=None, bn_group=None):
         self.ss = space or ss
         self.num_classes = num_classes
+        self.bn_group = bn_group
         self.first_stem = ConvLayer(affine=False, **self.ss.STEM_CONV)
         self.second_stem = MBInvertedResBlock(affine=False,
                                               **self.ss.SECOND_STEM)
@@ -180,17 +188,21 @@ class SuperNetwork:
 
     def _stem(self, params, x, training):
         x, _ = self.first_stem.apply(params["first_stem"], {}, x,
-                                     training=training)
+                                     training=training,
+                                     bn_group=self.bn_group)
         x, _ = self.second_stem.apply(params["second_stem"], {}, x,
-                                      training=training)
+                                      training=training,
+                                      bn_group=self.bn_group)
         return x
 
     def _head(self, params, x, training):
         x, _ = self.feature_mix_layer.apply(params["feature_mix_layer"], {},
-                                            x, training=training)
+                                            x, training=training,
+                                            bn_group=self.bn_group)
         x = x.mean(dim=(2, 3))
         x, _ = self.classifier.apply(params["classifier"], {}, x,
-                                     training=training)
+                                     training=training,
+                                     bn_group=self.bn_group)
         return x
 
     @staticmethod
@@ -204,18 +216,28 @@ class SuperNetwork:
                 [m > 0 for m in ss.OP_SE_MULT], device=device)
         return self._se_on[device]
 
+    def _group_sums(self, s, q, n):
+        """(s, q, n) summed over the ranks of bn_group: one differentiable
+        all-reduce of a [2C] buffer; unchanged without a group."""
+        if self.bn_group is None:
+            return s, q, n
+        s, q = all_reduce_sum(torch.cat([s, q]), self.bn_group).chunk(2)
+        return s, q, n * group_size(self.bn_group)
+
     def _dw_middle(self, h_raw, dwk, mask, act, stride):
         """mask -> BN -> act -> depthwise -> BN -> act over the raw expand
         output h_raw [N, C, H, W]; dwk: [C, 1, 5, 5]; mask: [C].
 
         The first BN's statistics are taken here; normalise + act, the 5x5
         depthwise and the second BN's statistics are one fused_dw_norm_act
-        call. Search BN is batch-stat-only and affine-free."""
+        call. Search BN is batch-stat-only and affine-free. With a
+        bn_group, both pairs of sums are the group's (the kernel's backward
+        then receives their cotangents summed over the ranks)."""
         sd = stat_dtype(h_raw.dtype)
         n1 = h_raw.shape[0] * h_raw.shape[2] * h_raw.shape[3]
         hm = h_raw.to(sd) * mask.to(sd)[None, :, None, None]
-        s1 = hm.sum(dim=(0, 2, 3))
-        q1 = (hm * hm).sum(dim=(0, 2, 3))
+        s1, q1, n1 = self._group_sums(hm.sum(dim=(0, 2, 3)),
+                                      (hm * hm).sum(dim=(0, 2, 3)), n1)
         mean1 = s1 / n1
         var1 = q1 / n1 - mean1 * mean1
         scale1, offset1 = fold_bn_mask(mean1, var1, mask, BN_EPS)
@@ -223,7 +245,8 @@ class SuperNetwork:
         x_nhwc = h_raw.permute(0, 2, 3, 1).contiguous()
         h2, s2, q2 = fused_dw_norm_act(x_nhwc, dwk[:, 0].permute(1, 2, 0),
                                        scale1, offset1, stride, act)
-        n2 = h2.shape[0] * h2.shape[1] * h2.shape[2]
+        s2, q2, n2 = self._group_sums(s2, q2,
+                                      h2.shape[0] * h2.shape[1] * h2.shape[2])
         mean2 = s2 / n2
         var2 = q2 / n2 - mean2 * mean2
         scale2, offset2 = fold_bn_mask(mean2, var2, mask, BN_EPS)
@@ -289,7 +312,7 @@ class SuperNetwork:
                           pk[1::2, :, :, 0, 0].to(h.dtype))
         y = torch.cat([y3, y6], dim=3).reshape(nb, hh, ww, n_ops * site.oc)
         y, _ = batch_norm(y.permute(0, 3, 1, 2), {}, {}, affine=False,
-                          training=training)
+                          training=training, group=self.bn_group)
 
         # weighted cross-branch sum after the per-branch project BN
         w_perm = torch.cat([w[::2], w[1::2]])
@@ -324,7 +347,8 @@ class SuperNetwork:
         h = h * gate[:, :, None, None].to(h.dtype)
 
         y = self._conv(h, _take(p["project"]["kernel"], op_idx))
-        y, _ = batch_norm(y, {}, {}, affine=False, training=training)
+        y, _ = batch_norm(y, {}, {}, affine=False, training=training,
+                          group=self.bn_group)
         if site.has_residual:
             y = y + x
         return y

@@ -33,8 +33,9 @@ from .supernet import SuperNetwork, _none_tree
 class HybridSuperNetwork(SuperNetwork):
     """SuperNetwork over the 9-op hybrid conv/ViT space."""
 
-    def __init__(self, num_classes):
-        super().__init__(num_classes)
+    def __init__(self, num_classes, bn_group=None):
+        # the ViT candidates' LayerNorms need no group (ops/attention.py)
+        super().__init__(num_classes, bn_group=bn_group)
         self.vit = hs.vit_sites()   # global_idx -> (stage, block, entry)
         # search-time ViT blocks: the widest MLP, LN without affine (as the
         # search BNs are affine-free)

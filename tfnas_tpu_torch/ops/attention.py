@@ -121,9 +121,12 @@ class ViTBlock:
         return params, {}
 
     def apply(self, params, state, x, *, training=False, keep=None,
-              channel_mask=None):
+              channel_mask=None, bn_group=None):
         """x: [N, ic, H, W] -> [N, oc, H/s, W/s]. keep: (attn, mlp), the two
-        [N] drop-connect draws (used when training with a rate > 0)."""
+        [N] drop-connect draws (used when training with a rate > 0).
+        bn_group is accepted for the common layer interface and unused:
+        LayerNorm normalises each token alone."""
+        del bn_group
         n = x.shape[0]
         x = x.permute(0, 2, 3, 1)                         # NHWC view
         if self.has_patch_merge:

@@ -98,7 +98,7 @@ class ConvLayer:
                                                 generator.device)
         return params, state
 
-    def apply(self, params, state, x, *, training=False):
+    def apply(self, params, state, x, *, training=False, bn_group=None):
         new_state = dict(state)
         for op in _ops_list(self.ops_order):
             if op == "weight":
@@ -111,7 +111,8 @@ class ConvLayer:
                 if self.use_bn:
                     x, new_state["bn"] = batch_norm(
                         x, params.get("bn", {}), state.get("bn", {}),
-                        affine=self.affine, training=training)
+                        affine=self.affine, training=training,
+                        group=bn_group)
             elif op == "act":
                 x = apply_act(x, self.act_func)
             else:
@@ -151,13 +152,13 @@ class IdentityLayer:
                                                 self.affine, generator.device)
         return params, state
 
-    def apply(self, params, state, x, *, training=False):
+    def apply(self, params, state, x, *, training=False, bn_group=None):
         new_state = dict(state)
         for op in _ops_list(self.ops_order):
             if op == "bn" and self.use_bn:
                 x, new_state["bn"] = batch_norm(
                     x, params.get("bn", {}), state.get("bn", {}),
-                    affine=self.affine, training=training)
+                    affine=self.affine, training=training, group=bn_group)
             elif op == "act":
                 x = apply_act(x, self.act_func)
         return x, new_state
@@ -201,7 +202,7 @@ class LinearLayer:
                                                 generator.device)
         return params, state
 
-    def apply(self, params, state, x, *, training=False):
+    def apply(self, params, state, x, *, training=False, bn_group=None):
         new_state = dict(state)
         for op in _ops_list(self.ops_order):
             if op == "weight":
@@ -210,7 +211,8 @@ class LinearLayer:
                 if self.use_bn:
                     x, new_state["bn"] = batch_norm(
                         x, params.get("bn", {}), state.get("bn", {}),
-                        affine=self.affine, training=training)
+                        affine=self.affine, training=training,
+                        group=bn_group)
             elif op == "act":
                 x = apply_act(x, self.act_func)
             else:
@@ -318,12 +320,12 @@ class MBInvertedResBlock:
             generator)
         return params, state
 
-    def _bn(self, x, params, state, new_state, name, training):
+    def _bn(self, x, params, state, new_state, name, training, group):
         if not self.use_bn:
             return x
         x, new_state.setdefault(name, {})["bn"] = batch_norm(
             x, params[name].get("bn", {}), state.get(name, {}).get("bn", {}),
-            affine=self.affine, training=training)
+            affine=self.affine, training=training, group=group)
         return x
 
     def _conv(self, x, params, name, stride=1, groups=None):
@@ -332,22 +334,25 @@ class MBInvertedResBlock:
                       groups=self.groups if groups is None else groups,
                       bias=conv.get("bias"))
 
-    def apply(self, params, state, x, *, training=False, keep=None):
+    def apply(self, params, state, x, *, training=False, keep=None,
+              bn_group=None):
         """keep: the [N] 0/1 drop-connect draw of this block (used when
-        training with drop_connect_rate > 0 and a residual)."""
+        training with drop_connect_rate > 0 and a residual); bn_group: the
+        process group of cross-replica BN."""
         new_state = {k: dict(v) for k, v in state.items()}
         shuffle = self.has_shuffle and self.groups > 1
         res = x
         if self.has_expand:
             x = self._conv(x, params, "inverted_bottleneck")
             x = self._bn(x, params, state, new_state, "inverted_bottleneck",
-                         training)
+                         training, bn_group)
             x = apply_act(x, self.act_func)
             if shuffle:
                 x = channel_shuffle(x, self.groups)
         x = self._conv(x, params, "depth_conv", self.stride,
                        self.mid_channels)
-        x = self._bn(x, params, state, new_state, "depth_conv", training)
+        x = self._bn(x, params, state, new_state, "depth_conv", training,
+                     bn_group)
         x = apply_act(x, self.act_func)
         if self.has_se:
             se = params["squeeze_excite"]
@@ -357,7 +362,8 @@ class MBInvertedResBlock:
             gate = torch.sigmoid(z.float()).to(x.dtype)
             x = x * gate[:, :, None, None]
         x = self._conv(x, params, "point_linear")
-        x = self._bn(x, params, state, new_state, "point_linear", training)
+        x = self._bn(x, params, state, new_state, "point_linear", training,
+                     bn_group)
         if shuffle:
             x = channel_shuffle(x, self.groups)
         if self.has_residual:

@@ -1,5 +1,4 @@
-from .train_dp import (EvalTrainState, cosine_lr_with_warmup,
-                       init_eval_train_state, make_eval_steps)
-
-__all__ = ["EvalTrainState", "cosine_lr_with_warmup",
-           "init_eval_train_state", "make_eval_steps"]
+"""Data parallelism and the Pareto search: `mesh` (process groups and
+collectives), `train_dp` (eval-network steps) and `pareto` (G searches
+at once). Import the submodules: `mesh` is imported by the ops, so this
+package imports nothing that would import them back."""

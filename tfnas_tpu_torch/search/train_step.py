@@ -21,6 +21,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..parallel.mesh import all_reduce_mean
 from ..utils.metrics import accuracy, cross_entropy, masked_mean, nll
 from .bisample import (gumbel_softmax_weights, gumbel_uniform,
                        project_log_softmax, sample_gumbel_indices,
@@ -53,6 +54,19 @@ def tree_unflatten(tree, leaves):
 
 def zeros_like_tree(tree):
     return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), tree)
+
+
+def mean_over_group(group, grads, metrics):
+    """(grads, metrics) averaged over the ranks of `group` by one
+    collective over one flat buffer (the data-parallel pmean of the JAX
+    steps); unchanged when group is None. metrics: a dict of 0-dim
+    tensors."""
+    if group is None:
+        return grads, metrics
+    leaves = tree_leaves(grads)
+    out = all_reduce_mean(leaves + list(metrics.values()), group)
+    return (tree_unflatten(grads, out[:len(leaves)]),
+            dict(zip(metrics, out[len(leaves):])))
 
 
 def value_and_grad(loss_fn, tree):
@@ -184,7 +198,8 @@ class SearchStepFns(NamedTuple):
 def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
                       a_beta1=0.5, a_beta2=0.999, a_wd=5e-4, grad_clip=5.0,
                       lambda_lat=0.1, target_lat=15.0, lat_under_boost=1.0,
-                      capture=False, family=None, valid_mask=None):
+                      capture=False, family=None, valid_mask=None,
+                      group=None):
     """The step functions for SuperNetwork `net`:
 
     warmup_step(params, arch_params, mom, masks, update_masks, x, y, lr,
@@ -203,11 +218,18 @@ def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
     from a CUDA graph (search/compiled.py; their outputs are then static
     buffers that the next replay overwrites, so a caller that keeps a
     step's result clones it first). On the CPU they run eagerly.
-    family: the GraphFamily whose pool and buffers the graphs share.
+    family: the GraphFamily whose pool and buffers the graphs share (or a
+    SharedFamily, to share one made at the first capture with other
+    steps).
     valid_mask: optional 0/1 [18, NUM_OPS] tensor of the candidate slots
     each block offers (the hybrid conv/ViT space): invalid slots get zero
     soft weight and the projection pins them to a sentinel. The hard draws
-    are arguments; make them with the same mask (search/bisample.py)."""
+    are arguments; make them with the same mask (search/bisample.py).
+    group: the process group the steps are data-parallel over (the ranks
+    of one Pareto group; `net` then takes its BN statistics over it too):
+    the weight steps average their gradients, loss and accuracies over its
+    ranks and the arch step its gradients and loss_a, by one collective
+    each. Every rank must then make the same draws."""
     del num_classes  # the logits carry it
 
     def _weight_update(params, mom, update_masks, grads, lr):
@@ -225,8 +247,10 @@ def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
             logits = net.apply_sampled(p, arch_params, masks, x, idx_g)
             return cross_entropy(logits, y), logits
         (loss, logits), grads = value_and_grad(loss_fn, params)
+        grads, metrics = mean_over_group(group, grads,
+                                         _metrics(loss, logits, y))
         params, mom = _weight_update(params, mom, update_masks, grads, lr)
-        return params, mom, _metrics(loss, logits, y)
+        return params, mom, metrics
 
     def weight_step(params, arch_params, mom, masks, update_masks, x, y, lr,
                     idx_g, idx_r):
@@ -236,8 +260,10 @@ def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
             return (cross_entropy(logits_g, y) + cross_entropy(logits_r, y),
                     logits_g)
         (loss, logits), grads = value_and_grad(loss_fn, params)
+        grads, metrics = mean_over_group(group, grads,
+                                         _metrics(loss, logits, y))
         params, mom = _weight_update(params, mom, update_masks, grads, lr)
-        return params, mom, _metrics(loss, logits, y)
+        return params, mom, metrics
 
     def arch_step(params, arch_params, opt_a, masks, x, y, lat_vec,
                   base_lat, temperature, gumbel_u):
@@ -258,6 +284,9 @@ def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
                                      lat.detach())
         (_, (loss_a, loss_l, lat)), grads = value_and_grad(loss_fn,
                                                            arch_params)
+        # loss_l and lat are functions of the arch params alone: the same
+        # on every rank
+        grads, metrics = mean_over_group(group, grads, {"loss_a": loss_a})
         arch_params, opt_a = adam_update(
             arch_params, grads, opt_a, lr=a_lr, b1=a_beta1, b2=a_beta2,
             eps=1e-8, weight_decay=a_wd, grad_clip=grad_clip)
@@ -267,8 +296,8 @@ def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
             "betas": {k: torch.log_softmax(v, dim=-1)
                       for k, v in arch_params["betas"].items()},
         }
-        return arch_params, opt_a, {"loss_a": loss_a, "loss_l": loss_l,
-                                    "lat": lat}
+        return arch_params, opt_a, {"loss_a": metrics["loss_a"],
+                                    "loss_l": loss_l, "lat": lat}
 
     @torch.no_grad()
     def val_step(params, arch_params, masks, x, y, idx_g, wmask=None):
@@ -283,7 +312,8 @@ def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
 
     if not capture:
         return SearchStepFns(warmup_step, weight_step, arch_step, val_step)
-    shared = SharedFamily(family)
+    shared = family if isinstance(family, SharedFamily) else \
+        SharedFamily(family)
     return SearchStepFns(
         AutoGraphed(warmup_step, {0: 0, 1: 2}, "warmup_step", shared),
         AutoGraphed(weight_step, {0: 0, 1: 2}, "weight_step", shared),

@@ -6,9 +6,11 @@ repository's test.py).
 
 --weights is an eval checkpoint written by either package's retrain
 driver; the architecture comes from --model_path, --config_path or the
-checkpoint's own model_config. f32 compute on one card (`--device`,
-default cuda). The final batch is padded and masked, so loss, top-1 and
-top-5 are exact over the full set.
+checkpoint's own model_config. f32 compute (`--device`, default cuda).
+Under torchrun (`--nproc_per_node N`) each process scores its host shard
+of the list (or its rows of each --synthetic batch) at batch_size / N and
+the sums are added over the ranks; only rank 0 prints. The final batch is
+padded and masked, so loss, top-1 and top-5 are exact over the full set.
 """
 
 from __future__ import annotations
@@ -23,10 +25,12 @@ from .convert import eval_state_from_jax
 from .data import DataLoader, ImageList, device_normalizer, synthetic_loader
 from .device import resolve_device
 from .models.eval_net import EvalNetwork
+from .parallel.mesh import (host_shard, is_main_process, local_device,
+                            make_mesh, maybe_distributed_init)
 from .parallel.train_dp import make_eval_steps
 from .search.parser import (get_mc_num_dddict, get_op_and_depth_weights,
                             parse_architecture)
-from .train_eval import validate
+from .train_eval import local_batch, validate
 from .utils import load_checkpoint
 
 parser = argparse.ArgumentParser("testing the trained architectures "
@@ -64,28 +68,31 @@ def build_net(args, ckpt):
 
 def main(argv=None):
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
-    print('parsing the architecture')
+    device = local_device(resolve_device(args.device))
+    _, world = maybe_distributed_init(device)
+    show = print if is_main_process() else (lambda *a: None)
+    show('parsing the architecture')
     ckpt = load_checkpoint(args.weights)
     net = build_net(args, ckpt)
     state = eval_state_from_jax(ckpt, device)
     # f32: test.py is the accuracy scorer; bf16 is the training default
     _, val_step = make_eval_steps(net, num_classes=args.num_classes,
-                                  compute_dtype=torch.float32)
+                                  compute_dtype=torch.float32,
+                                  group=make_mesh(world).data_group)
     if args.synthetic:
         batches = synthetic_loader(args.batch_size, 8, args.num_classes,
-                                   args.image_size)
+                                   args.image_size, shard=host_shard())
     else:
         ds = ImageList(args.val_root, args.val_list, training=False,
-                       image_size=args.image_size)
-        batches = DataLoader(ds, args.batch_size, shuffle=False,
+                       image_size=args.image_size, host_shard=host_shard())
+        batches = DataLoader(ds, local_batch(args.batch_size), shuffle=False,
                              num_workers=args.workers, drop_last=False,
                              pad_last=True)
     loss, top1, top5 = validate(val_step, state, batches,
                                 device_normalizer(torch.float32), device)
-    print('Val_loss: {:.6f}'.format(loss))
-    print('Val_acc_top1: {:.4f}'.format(top1))
-    print('Val_acc_top5: {:.4f}'.format(top5))
+    show('Val_loss: {:.6f}'.format(loss))
+    show('Val_acc_top1: {:.4f}'.format(top1))
+    show('Val_acc_top5: {:.4f}'.format(top5))
     return {"loss": float(loss), "top1": float(top1), "top5": float(top5)}
 
 

@@ -5,13 +5,21 @@ repository's train_eval.py).
         --train_root ... --train_list ... --val_root ... --val_list ... \
         --save /tmp/eval
 
-The JAX driver's flags and defaults, on one card (`--device`, default
-cuda): bf16 activations unless --no_bf16, SGD momentum with label
-smoothing, per-epoch cosine lr, drop-connect and dropout drawn from a
-torch.Generator seeded by --seed. Real lists go through ImageList (uint8
-pixels), the threaded DataLoader and the card's prefetcher, and are
-normalised on the card; --synthetic makes the JAX driver's numpy batches.
-Validation is exact over the padded full set. Every epoch writes
+    torchrun --nproc_per_node N -m tfnas_tpu_torch.train_eval ...
+
+The JAX driver's flags and defaults (`--device`, default cuda): bf16
+activations unless --no_bf16, SGD momentum with label smoothing, per-epoch
+cosine lr, drop-connect and dropout drawn from a torch.Generator seeded by
+--seed. Under torchrun each process takes the card of its LOCAL_RANK and
+--batch_size is the global batch: every rank takes batch / world of it
+(real lists through ImageList's host shard, --synthetic as rows of the
+global batch), BN is cross-replica and the gradients are averaged (one
+NCCL all-reduce per step; gloo with --device cpu). Rank r > 0 draws its
+drop-connect and dropout from its own generator. Only rank 0 logs to a
+file and writes. Real lists go through ImageList (uint8 pixels), the
+threaded DataLoader and the card's prefetcher, and are normalised on the
+card; --synthetic makes the JAX driver's numpy batches. Validation is
+exact over the padded full set, across the ranks. Every epoch writes
 checkpoint.pkl (and model_best.pkl on a new best top-1) under the run
 directory, with the JAX driver's keys and parameter layout, so the JAX
 package's test.py reads it.
@@ -33,11 +41,14 @@ from .data import (DataLoader, DevicePrefetcher, ImageList, device_normalizer,
                    synthetic_loader)
 from .device import resolve_device
 from .models.eval_net import EvalNetwork
+from .parallel.mesh import (host_shard, is_main_process, local_device,
+                            make_mesh, maybe_distributed_init, pair_seed)
 from .parallel.train_dp import (cosine_lr_with_warmup, init_eval_train_state,
                                 make_eval_steps)
 from .search.parser import (get_mc_num_dddict, get_op_and_depth_weights,
                             parse_architecture)
-from .utils import load_checkpoint, save_checkpoint, setup_experiment
+from .utils import (load_checkpoint, save_checkpoint, setup_experiment,
+                    setup_rank_logging)
 
 parser = argparse.ArgumentParser(
     "training the searched architecture on imagenet (PyTorch)")
@@ -94,29 +105,44 @@ def build_model(args):
     raise SystemExit('invalid --model_path and --config_path')
 
 
+def local_batch(batch_size):
+    """This rank's share of the global batch."""
+    shard = host_shard()
+    if shard is None:
+        return batch_size
+    if batch_size % shard[1]:
+        raise SystemExit(f"--batch_size {batch_size} does not divide over "
+                         f"{shard[1]} ranks")
+    return batch_size // shard[1]
+
+
 def make_loaders(args):
-    """(train_iter(epoch), val_iter(epoch)) of numpy batches; validation
-    batches are (x, y, n_valid) over the padded full set."""
+    """(train_iter(epoch), val_iter(epoch)) of numpy batches, this rank's
+    share of each global batch; validation batches are (x, y, n_valid)
+    over the padded full set."""
+    bs = local_batch(args.batch_size)
     if args.synthetic:
         spe = args.steps_per_epoch or 50
 
         def train_iter(ep):
             return synthetic_loader(args.batch_size, spe, args.num_classes,
-                                    args.image_size, seed=(ep, 0))
+                                    args.image_size, seed=(ep, 0),
+                                    shard=host_shard())
 
         def val_iter(ep):
             return synthetic_loader(args.batch_size, max(spe // 4, 1),
                                     args.num_classes, args.image_size,
-                                    seed=(99_000 + ep, 0))
+                                    seed=(99_000 + ep, 0),
+                                    shard=host_shard())
         return train_iter, val_iter
     train_ds = ImageList(args.train_root, args.train_list, training=True,
-                         image_size=args.image_size,
+                         image_size=args.image_size, host_shard=host_shard(),
                          rrc_scale=(args.rrc_min_scale, 1.0))
     val_ds = ImageList(args.val_root, args.val_list, training=False,
-                       image_size=args.image_size)
-    tl = DataLoader(train_ds, args.batch_size, shuffle=True,
+                       image_size=args.image_size, host_shard=host_shard())
+    tl = DataLoader(train_ds, bs, shuffle=True,
                     num_workers=args.workers, seed=args.seed)
-    vl = DataLoader(val_ds, args.batch_size, shuffle=False,
+    vl = DataLoader(val_ds, bs, shuffle=False,
                     num_workers=args.workers, seed=args.seed,
                     drop_last=False, pad_last=True)
 
@@ -131,8 +157,9 @@ def make_loaders(args):
 
 
 def validate(val_step, state, batches, prep, device):
-    """(loss, top1, top5) over every valid sample of `batches`, from sums
-    kept on the device and pulled once, as numpy float32 values."""
+    """(loss, top1, top5) over every valid sample of `batches` (of every
+    rank's), from sums kept on the device and pulled once, as numpy
+    float32 values."""
     vacc = torch.zeros(4, device=device)
     for batch in DevicePrefetcher(batches, device):
         x, y = batch[0], batch[1]
@@ -141,7 +168,7 @@ def validate(val_step, state, batches, prep, device):
         wmask[:n_valid] = 1.0
         m = val_step(state, prep(x), y, wmask)
         vacc += torch.stack([m["loss"], m["top1"], m["top5"],
-                             torch.ones((), device=device)]) * n_valid
+                             torch.ones((), device=device)]) * m["count"]
     return _avg3(vacc)
 
 
@@ -153,22 +180,30 @@ def _avg3(acc):
 
 def main(argv=None):
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    device = local_device(resolve_device(args.device))
+    rank, world = maybe_distributed_init(device)
     net = build_model(args)
     train_iter, val_iter = make_loaders(args)
-    run_dir = setup_experiment(args.save, 'eval', args.note)
+    run_dir = None
+    if is_main_process():
+        run_dir = setup_experiment(args.save, 'eval', args.note)
+        with open(os.path.join(run_dir, 'model.config'), 'w') as f:
+            json.dump(net.config, f, indent=4)
+    else:
+        setup_rank_logging(rank)
     logging.info("args = %s", args)
-    logging.info("device: %s", device)
-    with open(os.path.join(run_dir, 'model.config'), 'w') as f:
-        json.dump(net.config, f, indent=4)
+    logging.info("device: %s, rank %d of %d", device, rank, world)
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     train_step, val_step = make_eval_steps(
         net, num_classes=args.num_classes, label_smooth=args.label_smooth,
         momentum=args.momentum, weight_decay=args.weight_decay,
-        grad_clip=args.grad_clip, compute_dtype=dtype)
+        grad_clip=args.grad_clip, compute_dtype=dtype,
+        group=make_mesh(world).data_group)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    state = init_eval_train_state(net, gen)
+    state = init_eval_train_state(net, gen)  # the same on every rank
+    if rank:
+        gen.manual_seed(pair_seed(args.seed, rank))
 
     start_epoch, best_acc_top1, best_acc_top5 = 0, 0.0, 0.0
     if args.snapshot:
@@ -209,6 +244,8 @@ def main(argv=None):
         is_best = val_acc_top1 > best_acc_top1
         if is_best:
             best_acc_top1, best_acc_top5 = val_acc_top1, val_acc_top5
+        if run_dir is None:
+            continue
         save_checkpoint({
             'epoch': epoch + 1,
             'params': params_to_jax(state.params),

@@ -212,8 +212,6 @@ class Search:
         self.arch_params = self.adopt(arch_params)
         self.mc_mask_dddict = mc_mask_dddict
         self.key_dddict = space.build_lat_lookup_key_dddict()
-        self.mc_maxnum_dddict = get_mc_num_dddict(
-            space.build_mc_mask_dddict(), is_max=True)
         self.masks = self.update_masks = self.lat_vec = None
         self.mom = self.opt_a = None
         self.lr = self.adopt(torch.zeros((), device=device))
@@ -370,20 +368,61 @@ class Search:
     def end_epoch(self, target_lat, log=lambda *a: None):
         """Shrink or expand the widths toward target_lat and rewrite the
         masks by the L1 norm of the trained depthwise kernels."""
-        op_weights, depth_weights = get_op_and_depth_weights(
-            {"arch_params": to_numpy_tree(self.arch_params)})
-        parsed_arch = parse_architecture(op_weights, depth_weights,
-                                         space=self.space)
-        mc_num_dddict, before_lat, after_lat = shrink_or_expand(
-            parsed_arch, get_mc_num_dddict(self.mc_mask_dddict),
-            self.mc_maxnum_dddict, self.key_dddict, self.lut, target_lat,
-            log=log)
-        log('Before, the current lat: %.4f, the target lat: %.4f',
-            before_lat, target_lat)
-        self.mc_mask_dddict = rewrite_masks_by_l1(
-            parsed_arch, mc_num_dddict, self.mc_mask_dddict, self.params)
-        log('After, the current lat: %.4f, the target lat: %.4f', after_lat,
-            target_lat)
+        self.mc_mask_dddict, _, _ = rescale_widths(
+            self.arch_params, self.params, self.mc_mask_dddict, self.space,
+            self.lut, target_lat, log)
+
+
+def rescale_widths(arch_params, params, mc_mask_dddict, space, lat_lookup,
+                   target_lat, log=lambda *a: None):
+    """The epoch boundary of a search: parse the arch parameters, shrink or
+    expand the parsed widths toward target_lat on the LUT, and rewrite the
+    masks by the L1 norm of the trained depthwise kernels. Returns (new
+    mc_mask_dddict, LUT latency before, after)."""
+    op_weights, depth_weights = get_op_and_depth_weights(
+        {"arch_params": to_numpy_tree(arch_params)})
+    parsed_arch = parse_architecture(op_weights, depth_weights, space=space)
+    mc_num_dddict, before_lat, after_lat = shrink_or_expand(
+        parsed_arch, get_mc_num_dddict(mc_mask_dddict),
+        get_mc_num_dddict(space.build_mc_mask_dddict(), is_max=True),
+        space.build_lat_lookup_key_dddict(), lat_lookup, target_lat,
+        log=log)
+    log('Before, the current lat: %.4f, the target lat: %.4f',
+        before_lat, target_lat)
+    new_masks = rewrite_masks_by_l1(parsed_arch, mc_num_dddict,
+                                    mc_mask_dddict, params)
+    log('After, the current lat: %.4f, the target lat: %.4f', after_lat,
+        target_lat)
+    return new_masks, before_lat, after_lat
+
+
+def masks_to_numpy(mc_mask_dddict):
+    """{stage: {block: {op: numpy mask}}}, as the checkpoints hold it."""
+    return {st: {b: {o: np.asarray(m) for o, m in d.items()}
+                 for b, d in sd.items()}
+            for st, sd in mc_mask_dddict.items()}
+
+
+def space_and_lut(args):
+    """(space, lat_lookup) of --space: the tiny space gets its in-process
+    analytic table, the others read --lookup_path. --space hybrid refuses
+    a table without the ViT keys before anything is written."""
+    if args.space == 'tiny':
+        space = ss.tiny_space(args.image_size)
+        return space, build_space_analytic_lut(space)
+    space = hs if args.space == 'hybrid' else ss
+    lat_lookup = load_lat_lookup(args.lookup_path)
+    if args.space == 'hybrid':
+        key_dddict = space.build_lat_lookup_key_dddict()
+        missing = {key_dddict[st][b][hs.VIT_OP_IDX]
+                   for st in key_dddict for b in key_dddict[st]
+                   if hs.VIT_OP_IDX in key_dddict[st][b]} - set(lat_lookup)
+        if missing:
+            raise SystemExit(
+                f"--space hybrid needs ViT entries in the LUT; missing "
+                f"{sorted(missing)[:3]}... — regenerate with "
+                f"python -m tfnas_tpu_torch.make_lat_lut --space hybrid")
+    return space, lat_lookup
 
 
 def _mavg(a):
@@ -398,23 +437,9 @@ def main(argv=None):
         raise SystemExit("--scan_units must be at least 1")
     device = resolve_device(args.device)
     hybrid = args.space == 'hybrid'
-    if args.space == 'tiny':
-        space = ss.tiny_space(args.image_size)
-        lat_lookup = build_space_analytic_lut(space)
-    else:
-        space = hs if hybrid else ss
-        lat_lookup = load_lat_lookup(args.lookup_path)
+    space, lat_lookup = space_and_lut(args)
     mc_mask_dddict = space.build_mc_mask_dddict()
     key_dddict = space.build_lat_lookup_key_dddict()
-    if hybrid:
-        missing = {key_dddict[st][b][hs.VIT_OP_IDX]
-                   for st in key_dddict for b in key_dddict[st]
-                   if hs.VIT_OP_IDX in key_dddict[st][b]} - set(lat_lookup)
-        if missing:
-            raise SystemExit(
-                f"--space hybrid needs ViT entries in the LUT; missing "
-                f"{sorted(missing)[:3]}... — regenerate with "
-                f"python -m tfnas_tpu_torch.make_lat_lut --space hybrid")
     train_iter, val_iter, full_val_iter = make_loaders(args)
     run_dir = setup_experiment(args.save, 'search', args.note)
     logging.info("args = %s", args)
@@ -466,9 +491,7 @@ def main(argv=None):
         """arch_params_NN.pkl every epoch; searched_model_NN.pkl every
         --save_freq epochs and after the last, in the JAX package's
         format."""
-        masks_np = {st: {b: {o: np.asarray(m) for o, m in d.items()}
-                         for b, d in sd.items()}
-                    for st, sd in search.mc_mask_dddict.items()}
+        masks_np = masks_to_numpy(search.mc_mask_dddict)
         with open(f"{run_dir}/arch_params_{epoch:02d}.pkl", "wb") as f:
             pickle.dump({"arch_params": to_numpy_tree(search.arch_params),
                          "mc_mask_dddict": masks_np, "epoch": epoch,

@@ -25,3 +25,10 @@ def setup_experiment(save_root, prefix, note):
     fh.setFormatter(logging.Formatter(log_format))
     logging.getLogger().addHandler(fh)
     return run_dir
+
+
+def setup_rank_logging(rank):
+    """Logging of a process that is not rank 0: stdout only, each line
+    prefixed by the rank; it writes no file."""
+    logging.basicConfig(stream=sys.stdout, level=logging.INFO,
+                        format=f"[rank {rank}] %(message)s", force=True)
