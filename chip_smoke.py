@@ -103,6 +103,25 @@ Phases, each printing one JSON line as soon as it ends:
    graphs (the collectives inside them), bit for bit, and the graphs'
    replay ms with and without the group, in turns.
 
+11. lowerings: the JAX package's opt-in lowerings at full width (batch
+   32, 224^2, 100 classes, bf16, latency_pkl/latency_h100.pkl; one set of
+   params, masks, batches and draws; cuDNN deterministic): remat_blocks'
+   captured warmup, weight and arch steps against its eager steps and
+   against the captured steps without remat (bit for bit, else 1e-5), its
+   fused nodes (twice the plain ones), the eager steps' peak memory and
+   the captured weight and arch ms in turns; the soft path's einsum and
+   grouped project with and without the k3/k5 depthwise split, each
+   captured arch step against its eager step, log_alphas and loss_a
+   against einsum's, arch ms in turns, fused nodes (none with the split);
+   cond_width_split's eager weight step (loss against the plain net's,
+   launches, ms in turns; capture refused); apply_multi_sampled's f32
+   logits (TF32 off) against apply_sampled_pair within 1e-4 x max|logit|
+   and its captured bf16 fwd + bwd against the pair's, in turns;
+   `train_search --profile_steps 2` over a warmup epoch of 4 batches,
+   whose trace must hold the kernel at both strides; and `python -m
+   tfnas_tpu_torch.tools_profile --only "sampled fwd"` as a user runs it.
+   Phase 2 checks and times the kernel at the lowerings' widths too.
+
 The line before the last holds the kernels' summary; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
 does a run without a card, a run without the package beside this file, and
@@ -178,12 +197,16 @@ def phase_env(torch, fused_dw):
 
 def main_path_sites(tss):
     """Distinct (H, C, stride, act, path) of the depthwise sites of the
-    full search at 224^2: soft width 48 * ic, sampled width 8 * ic."""
+    full search at 224^2: soft width 48 * ic, sampled width 8 * ic; and
+    the widths the opt-in lowerings give the kernel: 4 * ic
+    (cond_width_split's e3 picks) and 16 * ic (apply_multi_sampled)."""
     from tfnas_tpu_torch.models.supernet import block_sites
     out = []
     for site in block_sites(tss):
         h = tss.BLOCK_INPUT_RES[site.stage][int(site.block[5:]) - 1]
-        for path, c in (("soft", 48 * site.ic), ("sampled", 8 * site.ic)):
+        for path, c in (("soft", 48 * site.ic), ("sampled", 8 * site.ic),
+                        ("sampled_e3", 4 * site.ic),
+                        ("multi", 16 * site.ic)):
             case = (h, c, site.stride, site.act, path)
             if case not in out:
                 out.append(case)
@@ -1853,6 +1876,376 @@ def phase_parallel(torch, fused_dw, tmpdir):
     return launches, nodes, counts["captured"]["replayed"]
 
 
+# -- phase 11 -----------------------------------------------------------------
+
+KINDS = ("warmup", "weight", "arch")
+
+
+def _in_turns(torch, fns, turns=3, n=3):
+    """ms per call of each fn, n calls each time (CUDA events), in turns:
+    the order of the fns is reversed every second turn."""
+    out = {k: [] for k in fns}
+    names = list(fns)
+    for t in range(turns):
+        for k in (names if t % 2 == 0 else names[::-1]):
+            fns[k]()
+            out[k].append(_events_ms(torch, fns[k], n))
+    return out
+
+
+def _close_or_fail(failures, rec, errs, tol=1e-5):
+    worst = max(errs.values())
+    rec.update(max_abs_err=errs, bit_identical=worst == 0.0, tol=tol)
+    emit(rec)
+    if not worst <= tol:
+        failures.append(rec)
+
+
+def phase_lowerings(torch, fused_dw, tmpdir):
+    """The JAX package's opt-in lowerings at full width (batch 32, 224^2,
+    100 classes, bf16, latency_pkl/latency_h100.pkl), one set of params,
+    masks, batches and draws for all, cuDNN deterministic: remat_blocks
+    (captured = eager = no remat, nodes, peak memory, ms in turns), the
+    soft path's four lowerings (captured = eager arch steps, log_alphas
+    against einsum, ms in turns, nodes), cond_width_split (eager only:
+    loss against the plain net, ms in turns, capture refused),
+    apply_multi_sampled (f32 logits against apply_sampled_pair, captured
+    fwd + bwd ms in turns), `train_search --profile_steps 2` (a trace with
+    both kernel strides) and `python -m tfnas_tpu_torch.tools_profile`.
+    Returns the fused kernel launches (or nodes) of each path by stride."""
+    from tfnas_tpu_torch import train_search
+    from tfnas_tpu_torch.cost.lut import lat_vectors_for_mc, load_lat_lookup
+    from tfnas_tpu_torch.data.synthetic import device_batches
+    from tfnas_tpu_torch.models import search_space as ss
+    from tfnas_tpu_torch.models.supernet import SuperNetwork
+    from tfnas_tpu_torch.search.bisample import (gumbel_uniform,
+                                                 sample_gumbel_indices,
+                                                 sample_random_excluding)
+    from tfnas_tpu_torch.search.compiled import GraphedFn, GraphFamily
+    from tfnas_tpu_torch.search.parser import get_mc_num_dddict
+    from tfnas_tpu_torch.search.train_step import (adam_init,
+                                                   make_search_steps,
+                                                   value_and_grad,
+                                                   zeros_like_tree)
+    from tfnas_tpu_torch.tools_ab_ksplit import VARIANTS
+    from tfnas_tpu_torch.utils.metrics import cross_entropy
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    lut_path = os.path.join(here, "latency_pkl", "latency_h100.pkl")
+    _release(torch)  # the Pareto phase's graph pools
+    t_phase = time.perf_counter()
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    dev = torch.device("cuda")
+    lut = load_lat_lookup(lut_path)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    plain = SuperNetwork(100)
+    params, arch = plain.init(gen)
+    mc_mask = ss.build_mc_mask_dddict()
+    start = {"params": params, "arch": arch, "mom": zeros_like_tree(params),
+             "opt": adam_init(arch),
+             "masks": plain.device_masks(mc_mask, dev),
+             "umasks": plain.update_masks(params, mc_mask),
+             "lat": torch.from_numpy(lat_vectors_for_mc(
+                 lut, get_mc_num_dddict(mc_mask))).to(dev),
+             "lr": torch.tensor(0.025, device=dev),
+             "T": torch.tensor(5.0, device=dev),
+             "base": torch.tensor(float(lut["base"]), device=dev)}
+    del params
+    data = device_batches(BATCH, 3, gen, 100, 224, torch.bfloat16)
+    batches = [next(data) for _ in range(3)]
+    ig = sample_gumbel_indices(arch["log_alphas"], gen)
+    ir = sample_random_excluding(ig, ss.NUM_OPS, gen)
+    u = gumbel_uniform(arch["log_alphas"].shape, gen)
+    kw = dict(num_classes=100, lambda_lat=0.1, target_lat=5.0)
+    failures, counts = [], {}
+    fused_dw.reset_launches()  # every count at 0 before the paths
+
+    def call(steps, kind, st, i):
+        x, y = batches[i]
+        if kind == "arch":
+            a, o, m = steps.arch_step(st["params"], st["arch"], st["opt"],
+                                      st["masks"], x, y, st["lat"],
+                                      st["base"], st["T"], u)
+            return {"arch": a, "opt": o}, m
+        if kind == "warmup":
+            p, mo, m = steps.warmup_step(st["params"], st["arch"], st["mom"],
+                                         st["masks"], st["umasks"], x, y,
+                                         st["lr"], ig)
+        else:
+            p, mo, m = steps.weight_step(st["params"], st["arch"], st["mom"],
+                                         st["masks"], st["umasks"], x, y,
+                                         st["lr"], ig, ir)
+        return {"params": p, "mom": mo}, m
+
+    def run_steps(steps, st, peaks=None):
+        """A warmup, a weight and an arch step in turn, the state carried
+        on; each result cloned; peaks: each eager step's peak memory above
+        what was allocated before it, GB."""
+        outs = []
+        for i, kind in enumerate(KINDS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            out, m = call(steps, kind, st, i)
+            torch.cuda.synchronize()
+            if peaks is not None:
+                peaks[kind] = (torch.cuda.max_memory_allocated()
+                               - before) / 1e9
+            outs.append(_clone(torch, dict(out, metrics=m)))
+            st.update(out)
+        return outs
+
+    # remat_blocks: eager (the reference and the memory), then captured
+    nets = {"remat": SuperNetwork(100, remat_blocks=True), "plain": plain}
+    peaks = {name: {} for name in nets}
+    eager_remat = run_steps(make_search_steps(nets["remat"], **kw),
+                            _clone(torch, start), peaks["remat"])
+    eager_plain = run_steps(make_search_steps(plain, **kw),
+                            _clone(torch, start), peaks["plain"])
+    for i, kind in enumerate(KINDS):
+        _close_or_fail(failures, {"phase": "lowerings", "step": "remat",
+                                  "check": f"eager {kind}: remat vs plain"},
+                       {"all": _tree_err(torch, eager_remat[i],
+                                         eager_plain[i])})
+    del eager_plain
+    _release(torch)
+    capt, cst, outs, reserved = {}, {}, {}, {}
+    for name, net in nets.items():  # a family (one graph pool) each
+        r0 = torch.cuda.memory_reserved()
+        fam = GraphFamily(dev)
+        capt[name] = make_search_steps(net, capture=True, family=fam, **kw)
+        cst[name] = fam.adopt(start)  # static copies of the state
+        outs[name] = run_steps(capt[name], cst[name])
+        reserved[name] = (torch.cuda.memory_reserved() - r0) / 1e9
+        if name == "remat":
+            for i, kind in enumerate(KINDS):
+                _close_or_fail(failures, {
+                    "phase": "lowerings", "step": "remat",
+                    "check": f"{kind}: captured vs eager"},
+                    {"all": _tree_err(torch, outs[name][i], eager_remat[i])})
+            del eager_remat
+    for i, kind in enumerate(KINDS):
+        _close_or_fail(failures, {
+            "phase": "lowerings", "step": "remat",
+            "check": f"{kind}: captured remat vs captured plain"},
+            {"all": _tree_err(torch, outs["remat"][i], outs["plain"][i])})
+    del outs
+    nodes = {name: {k: dict(getattr(capt[name], f"{k}_step").graphed.nodes)
+                    for k in KINDS} for name in nets}
+    counts.update({f"remat_{k}_step_nodes": nodes["remat"][k]
+                   for k in KINDS})
+
+    def stepper(name, kind, i):
+        return lambda: call(capt[name], kind, cst[name], i)
+    times = {kind: _in_turns(torch, {n: stepper(n, kind, i)
+                                     for n in nets})
+             for i, kind in ((1, "weight"), (2, "arch"))}
+    emit({"phase": "lowerings", "step": "remat", "fused_nodes": nodes,
+          "peak_mem_GB_eager_step": peaks,
+          "reserved_GB_graphs_and_state_copy": reserved,
+          "captured_ms_in_turns": times})
+    for k in KINDS:
+        if nodes["remat"][k] != {s: 2 * n
+                                 for s, n in nodes["plain"][k].items()}:
+            failures.append(f"remat {k} nodes {nodes['remat'][k]} against "
+                            f"{nodes['plain'][k]} without remat")
+    del capt, cst, fam
+    _release(torch)
+
+    # the soft path's lowerings: the real arch step of each
+    fam = GraphFamily(dev)
+    shared = fam.adopt(start)
+    res = {}
+    for name, flags in VARIANTS.items():
+        net = SuperNetwork(100, **flags)
+        eager = make_search_steps(net, **kw)
+        want, wm = call(eager, "arch", dict(start, arch=_clone(torch, arch),
+                                            opt=adam_init(arch)), 2)
+        steps = make_search_steps(net, capture=True, family=fam, **kw)
+        st = dict(shared, arch=fam.adopt(_clone(torch, arch)),
+                  opt=fam.adopt(adam_init(arch)))
+        got, gm = call(steps, "arch", st, 2)
+        _close_or_fail(failures, {"phase": "lowerings", "step": "soft",
+                                  "variant": name,
+                                  "check": "arch step: captured vs eager"},
+                       {"all": _tree_err(torch, [got, gm], [want, wm])})
+        res[name] = {"steps": steps, "st": st, "loss_a": float(wm["loss_a"]),
+                     "log_alphas": want["arch"]["log_alphas"],
+                     "nodes": dict(steps.arch_step.graphed.nodes)}
+    ref = res["einsum"]
+    soft = {"phase": "lowerings", "step": "soft", "variants": {}}
+    for name, r in res.items():
+        d_la = (r["log_alphas"] - ref["log_alphas"]).abs().max().item()
+        d_loss = abs(r["loss_a"] - ref["loss_a"]) / abs(ref["loss_a"])
+        soft["variants"][name] = {"fused_nodes": r["nodes"],
+                                  "loss_a": r["loss_a"],
+                                  "max_abs_log_alphas_vs_einsum": d_la,
+                                  "loss_a_rel_vs_einsum": d_loss}
+        # one Adam step moves an entry by at most its lr: bf16 rounding can
+        # flip the sign of a near-zero gradient, nothing more
+        if not (d_la <= 2.5 * 0.01 and d_loss <= 2e-2):
+            failures.append(f"{name}: log_alphas {d_la}, loss_a {d_loss} "
+                            f"from einsum's")
+    counts["dw_kernel_split_arch_step_nodes"] = res["ksplit+einsum"]["nodes"]
+    soft["captured_arch_ms_in_turns"] = _in_turns(torch, {
+        name: (lambda r=r: call(r["steps"], "arch", r["st"], 2))
+        for name, r in res.items()})
+    emit(soft)
+    if any(res[n]["nodes"].get(s) for n in ("ksplit+einsum",
+                                            "ksplit+grouped")
+           for s in (1, 2)):
+        failures.append("the ksplit soft blocks recorded fused nodes")
+    del res, shared, fam, soft
+    _release(torch)
+
+    # cond_width_split: eager only
+    cws = SuperNetwork(100, cond_width_split=True)
+    try:
+        make_search_steps(cws, capture=True, **kw)
+        failures.append("capture of a cond_width_split net was not refused")
+        refused = False
+    except ValueError:
+        refused = True
+    ests = {"cond_width_split": (make_search_steps(cws, **kw),
+                                 _clone(torch, start)),
+            "plain": (make_search_steps(plain, **kw), _clone(torch, start))}
+    cw_launches, losses = {}, {}
+    for name, (steps, st) in ests.items():
+        into = {}
+        out, m = _counted(fused_dw, into, call, steps, "weight", st, 1)
+        cw_launches[name] = into
+        losses[name] = float(m["loss"])
+        st.update(out)
+    counts["cond_width_split_forward"] = {
+        s: n // 2 for s, n in cw_launches["cond_width_split"].items()}
+    d_loss = abs(losses["cond_width_split"] - losses["plain"]) / abs(
+        losses["plain"])
+
+    def eager_weight(name):
+        steps, st = ests[name]
+        return lambda: st.update(call(steps, "weight", st, 1)[0])
+    rec = {"phase": "lowerings", "step": "cond_width_split",
+           "capture_refused": refused, "losses": losses,
+           "loss_rel_vs_plain": d_loss,
+           "e3_picks": int((ig % 2 == 0).sum() + (ir % 2 == 0).sum()),
+           "weight_step_launches": cw_launches,
+           "eager_weight_ms_in_turns": _in_turns(
+               torch, {n: eager_weight(n) for n in ests})}
+    emit(rec)
+    if not d_loss <= 2e-2:
+        failures.append(rec)
+    del ests
+    _release(torch)
+
+    # apply_multi_sampled: f32 logits (TF32 off) against the pair, then
+    # the captured bf16 fwd + bwd of both, in turns
+    idx = torch.stack([ig, ir])
+    x, y = batches[1]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multi_launches, pair_launches = {}, {}
+    with torch.no_grad():
+        lm = _counted(fused_dw, multi_launches, plain.apply_multi_sampled,
+                      start["params"], arch, start["masks"], x.float(), idx)
+        lp = torch.stack(_counted(fused_dw, pair_launches,
+                                  plain.apply_sampled_pair, start["params"],
+                                  arch, start["masks"], x.float(), ig, ir))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        tf32
+    err = (lm - lp).abs().max().item()
+    tol = 1e-4 * lp.abs().max().item()
+    counts["multi_forward"] = multi_launches
+
+    def multi_loss(p, xx, yy):
+        def loss(q):
+            lg = plain.apply_multi_sampled(q, arch, start["masks"], xx, idx)
+            return cross_entropy(lg[0], yy) + cross_entropy(lg[1], yy), None
+        return value_and_grad(loss, p)
+
+    def pair_loss(p, xx, yy):
+        def loss(q):
+            lg, lr = plain.apply_sampled_pair(q, arch, start["masks"], xx,
+                                              ig, ir)
+            return cross_entropy(lg, yy) + cross_entropy(lr, yy), None
+        return value_and_grad(loss, p)
+    fam = GraphFamily(dev)
+    args = fam.adopt([start["params"], x, y])
+    graphs = {"multi": GraphedFn(fam, multi_loss, {}, "multi_fwd_bwd"),
+              "pair": GraphedFn(fam, pair_loss, {}, "pair_fwd_bwd")}
+    got = {n: _clone(torch, g(*args)) for n, g in graphs.items()}
+    counts["multi_fwd_bwd_nodes"] = dict(graphs["multi"].nodes)
+    d_loss = abs(got["multi"][0][0].item() - got["pair"][0][0].item()) / abs(
+        got["pair"][0][0].item())
+    rec = {"phase": "lowerings", "step": "multi",
+           "f32_logits_max_abs_err": err, "tol": tol,
+           "forward_launches": {"multi": multi_launches,
+                                "pair": pair_launches},
+           "fused_nodes": {n: g.nodes for n, g in graphs.items()},
+           "bf16_loss_rel_vs_pair": d_loss,
+           "bf16_grad_max_abs_err_vs_pair": _tree_err(
+               torch, got["multi"][1], got["pair"][1]),
+           "captured_fwd_bwd_ms_in_turns": _in_turns(torch, {
+               n: (lambda g=g: g(*args)) for n, g in graphs.items()})}
+    emit(rec)
+    if not (err <= tol and d_loss <= 2e-2):
+        failures.append(rec)
+    del graphs, got, args, fam
+    _release(torch)
+
+    # the driver's profiler: one warmup epoch of 4 batches, 2 traced steps
+    save = os.path.join(tmpdir, "lowerings_driver")
+    run_dir = train_search.main([
+        "--synthetic", "--epochs", "1", "--warmup_epochs", "1",
+        "--steps_per_epoch", "4", "--batch_size", str(BATCH),
+        "--image_size", "224", "--num_classes", "100", "--lookup_path",
+        lut_path, "--target_lat", "5.0", "--profile_steps", "2",
+        "--save", save])
+    trace = os.path.join(run_dir, "profile", "trace.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    by_stride = collections.Counter(
+        _fused_stride(e["name"]) for e in events
+        if e.get("cat") == "kernel" and "fused_dw" in e.get("name", ""))
+    rec = {"phase": "lowerings", "step": "driver_profile_steps",
+           "trace_MB": os.path.getsize(trace) / 1e6,
+           "kernel_events": sum(e.get("cat") == "kernel" for e in events),
+           "fused_dw_events_by_stride": dict(by_stride)}
+    emit(rec)
+    if not (by_stride.get(1) and by_stride.get(2)):
+        failures.append(rec)
+    del events
+    shutil.rmtree(save)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    _release(torch)
+
+    # the profiling tool as a user runs it
+    proc = subprocess.run(
+        [sys.executable, "-m", "tfnas_tpu_torch.tools_profile", "--only",
+         "sampled fwd"], cwd=here, capture_output=True, text=True,
+        timeout=240)
+    rec = {"phase": "lowerings", "step": "tools_profile", "rc":
+           proc.returncode}
+    try:
+        rec["last_line"] = json.loads(proc.stdout.strip().splitlines()[-1])
+        ok = proc.returncode == 0 and rec["last_line"]["ms"] and all(
+            math.isfinite(v) for v in rec["last_line"]["ms"].values())
+    except (IndexError, ValueError, KeyError):
+        rec["stderr"], ok = proc.stderr[-2000:], False
+    emit(rec)
+    if not ok:
+        failures.append(rec)
+
+    emit({"phase": "lowerings", "step": "done",
+          "seconds": time.perf_counter() - t_phase})
+    if failures:
+        raise AssertionError(f"lowerings phase: {failures}")
+    return counts
+
+
 def _profile_summary(step, path):
     """What the card did inside the profiled step's window (the host range
     'step', which ends after a synchronize): busy share, the fused kernel's
@@ -1943,6 +2336,7 @@ def main():
             torch, fused_dw, tmpdir)
         par_launches, par_nodes, par_replayed = phase_parallel(
             torch, fused_dw, tmpdir)
+        low = phase_lowerings(torch, fused_dw, tmpdir)
     for stride, n in launches.items():
         if n == 0:
             raise AssertionError(f"stride-{stride} kernel never launched on "
@@ -1954,6 +2348,11 @@ def main():
         if not (par_launches.get(stride) and par_replayed.get(stride)):
             raise AssertionError(f"stride-{stride} kernel never launched on "
                                  f"the Pareto path")
+        for path in ("remat_weight_step_nodes", "multi_forward",
+                     "multi_fwd_bwd_nodes"):
+            if not low[path].get(stride):
+                raise AssertionError(f"stride-{stride} kernel never launched "
+                                     f"on the {path} path")
 
     kernels = []
     for stride, name, replaces in (
@@ -1998,7 +2397,12 @@ def main():
             "replayed_launches_pareto_driver": par_replayed[stride],
             "captured_step_device_ms": {
                 k: cprof[k]["fused_dw_ms_by_stride"].get(stride, 0.0)
-                for k in ("weight", "arch")}})
+                for k in ("weight", "arch")},
+            # the opt-in lowerings (phase 11): nodes per replayed step
+            # under remat, launches per forward of cond_width_split and
+            # apply_multi_sampled, nodes of their captured paths
+            "launches_lowerings": {path: by.get(stride, 0)
+                                   for path, by in low.items()}})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

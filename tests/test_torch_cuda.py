@@ -10,7 +10,11 @@ so they run on a machine without it:
 Also the search steps replayed from CUDA graphs (search/compiled.py)
 against the eager steps, the scanned iteration's draws and result captured
 and eager, the step path without a host sync, the driver loop's buffer rewrites at epoch
-boundaries, and the latency chain (cost/measure.py).
+boundaries, and the latency chain (cost/measure.py); and the supernet's
+opt-in lowerings: remat_blocks captured against eager and against no
+remat, the soft path's grouped project and k3/k5 depthwise split against
+the CPU, apply_multi_sampled against two sampled forwards, and the kernel
+at the channel counts they give it (4 * ic, 16 * ic).
 
 Tolerances: f32 with TF32 off, 2e-4 for y (summation order) and 1e-3 for
 the sums; bf16, 2e-2 (one bf16 rounding of y, 2^-8 relative, either way);
@@ -308,9 +312,9 @@ def test_prefetcher_and_normalizer_on_card(cuda):
 
 # -- captured steps -----------------------------------------------------------
 
-def _tiny_state(dev, seed=0):
+def _tiny_state(dev, seed=0, **net_kw):
     from tfnas_tpu_torch.search.train_step import adam_init, zeros_like_tree
-    net = SuperNetwork(10, space=tss.tiny_space(32))
+    net = SuperNetwork(10, space=tss.tiny_space(32), **net_kw)
     params, arch = net.init(torch.Generator().manual_seed(seed))
     params, arch = _to(params, dev), _to(arch, dev)
     mc = net.ss.build_mc_mask_dddict()
@@ -780,3 +784,122 @@ def test_one_rank_nccl_group_matches_no_group(deterministic):
     _nccl_checks(deterministic, dist.group.WORLD)
     gc.collect()
     dist.destroy_process_group()
+
+
+# -- the opt-in lowerings -----------------------------------------------------
+
+def _cloned(tree):
+    from tfnas_tpu_torch.search.compiled import _flatten, _unflatten
+    leaves = []
+    spec = _flatten(tree, leaves)
+    return _unflatten(spec, iter([t.clone() for t in leaves]))
+
+
+def test_remat_captured_equals_eager_and_no_remat(deterministic):
+    """remat_blocks: the captured warmup, weight and arch steps equal the
+    same net's eager steps and the captured steps without remat, bit for
+    bit. The backward recomputes every block's forward, so each graph
+    holds twice the fused kernel nodes at each stride."""
+    from tfnas_tpu_torch.search.compiled import GraphFamily
+    from tfnas_tpu_torch.search.train_step import make_search_steps
+    dev = deterministic
+    kw = dict(num_classes=10, lambda_lat=0.1, target_lat=0.02)
+    runs, nodes = {}, {}
+    for name, remat, capture in (("eager", True, False),
+                                 ("captured", True, True),
+                                 ("no_remat", False, True)):
+        net, st, data = _tiny_state(dev, remat_blocks=remat)
+        fam = GraphFamily(dev) if capture else None
+        steps = make_search_steps(net, capture=capture, family=fam, **kw)
+        if fam is not None:
+            st = fam.adopt(st)
+        outs = []
+        for i, kind in enumerate(("warmup", "weight", "arch")):
+            x, y = data[i]
+            got, m = _step(steps, kind, st, x, y,
+                           torch.Generator(device=dev).manual_seed(i))
+            outs.append(_cloned({"state": got, "metrics": m}))
+            st.update(got)
+        runs[name] = outs
+        if fam is not None:
+            nodes[name] = {g.name: g.nodes for g in fam.graphs}
+    for other in ("eager", "no_remat"):
+        for a, b in zip(runs["captured"], runs[other]):
+            _assert_trees_equal(a, b)
+    for graph, by_stride in nodes["no_remat"].items():
+        assert all(by_stride.values())
+        assert nodes["captured"][graph] == {
+            s: 2 * n for s, n in by_stride.items()}
+
+
+@pytest.mark.parametrize("flags", [dict(project_einsum=False),
+                                   dict(dw_kernel_split=True),
+                                   dict(dw_kernel_split=True,
+                                        project_einsum=False)])
+def test_soft_lowerings_on_card_match_cpu(cuda, flags):
+    """The grouped project and the k3/k5 depthwise split: one arch step of
+    the tiny supernet on the card against the CPU (1e-4, f32, TF32 off);
+    with the split the soft blocks launch no fused kernel."""
+    from tfnas_tpu_torch.search.train_step import (adam_init,
+                                                   make_search_steps)
+    net = SuperNetwork(10, space=tss.tiny_space(32), **flags)
+    params, arch = net.init(torch.Generator().manual_seed(0))
+    mc = net.ss.build_mc_mask_dddict()
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((4, 32, 32, 3), generator=g)
+    y = torch.randint(0, 10, (4,), generator=g)
+    u = torch.rand((3, 8), generator=g).clamp_min(1e-6)
+    lat = torch.rand((3, 8), generator=g) * 0.01
+    steps = make_search_steps(net, num_classes=10, lambda_lat=0.1,
+                              target_lat=0.02)
+    outs = []
+    for dev in ("cpu", cuda):
+        p, a = _to(params, dev), _to(arch, dev)
+        before = sum(tfused.launches.values())
+        a1, opt, m = steps.arch_step(p, a, adam_init(a),
+                                     net.device_masks(mc, dev), x.to(dev),
+                                     y.to(dev), lat.to(dev), 0.004, 5.0,
+                                     u.to(dev))
+        launched = sum(tfused.launches.values()) - before
+        assert launched == (3 if dev != "cpu" and not net.dw_kernel_split
+                            else 0)
+        outs.append([t.cpu() for t in tree_leaves(a1) + tree_leaves(opt.mu)
+                     + [m["loss_a"]]])
+    for c, k in zip(*outs):
+        torch.testing.assert_close(k, c, rtol=1e-4, atol=1e-4)
+
+
+def test_multi_sampled_on_card_matches_two_sampled(cuda):
+    """apply_multi_sampled on the card (one fused launch per block, over
+    S * W channels) against two apply_sampled forwards on the card and
+    against itself on the CPU: 1e-4 x max|logit|, f32, TF32 off."""
+    net = SuperNetwork(10, space=tss.tiny_space(32))
+    params, arch = net.init(torch.Generator().manual_seed(0))
+    mc = net.ss.build_mc_mask_dddict()
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((4, 32, 32, 3), generator=g)
+    idx = torch.stack([torch.arange(3) % 8, (torch.arange(3) + 3) % 8])
+    got = {}
+    for dev in ("cpu", cuda):
+        p, a, m = _to(params, dev), _to(arch, dev), net.device_masks(mc, dev)
+        before = sum(tfused.launches.values())
+        got[str(dev)] = net.apply_multi_sampled(p, a, m, x.to(dev),
+                                                idx.to(dev)).cpu()
+        assert sum(tfused.launches.values()) - before == (
+            0 if dev == "cpu" else 3)
+        if dev != "cpu":
+            two = [net.apply_sampled(p, a, m, x.to(dev), i.to(dev)).cpu()
+                   for i in idx]
+    tol = 1e-4 * got["cpu"].abs().max().item()
+    for s in range(2):
+        torch.testing.assert_close(got["cuda"][s], two[s], rtol=0, atol=tol)
+    torch.testing.assert_close(got["cuda"], got["cpu"], rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("c", [64, 256, 768, 3072])  # 4 * ic and 16 * ic
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_kernel_at_lowering_widths(cuda, stride, dtype, c):
+    """The channel counts of cond_width_split's e3 picks (4 * ic: 64-768)
+    and of apply_multi_sampled (16 * ic: 256-3072)."""
+    _check_forward(_inputs(5, 2, 14, c, cuda, dtype), stride, "swish", dtype)

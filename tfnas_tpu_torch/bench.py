@@ -74,11 +74,11 @@ def _sync(device):
 
 def search_setup(device, space=None, batch=32, size=224, ncls=100,
                  lut_path=os.path.join(ROOT, "latency_pkl",
-                                       "latency_tpu.pkl")):
+                                       "latency_tpu.pkl"), **net_kw):
     """The supernet, its state on `device` and one batch, as bench.py
-    builds them."""
+    builds them. net_kw: SuperNetwork's lowering flags."""
     sp = space or ss
-    net = SuperNetwork(ncls, space=space)
+    net = SuperNetwork(ncls, space=space, **net_kw)
     gen = torch.Generator(device=device).manual_seed(0)
     params, arch = net.init(gen)
     mc_mask = sp.build_mc_mask_dddict()

@@ -4,7 +4,8 @@
 `fused_dw_norm_act(x, w, scale, offset, stride, act)` returns
 `(y, sum(y), sum(y^2))` with `y = depthwise5x5(act(x * scale + offset))`,
 x `[N, H, W, C]`, w `[5, 5, C]`, scale/offset `[C]`, and the per-channel
-sums in f32. It is differentiable through `FusedDwNormAct`.
+sums in f32 (float64 for float64 x, which only the plain version takes).
+It is differentiable through `FusedDwNormAct`.
 
 On a CUDA tensor the forward launches the hand-written kernel in
 `csrc/fused_dw.cu` (built with nvcc for sm_90a into `build/tfnas_tpu_torch/`
@@ -37,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.activations import apply_act
+from ..ops.batchnorm import stat_dtype
 
 KPAD = 2
 # the kernel's fixed geometry (csrc/fused_dw.cu)
@@ -243,8 +245,10 @@ def fused_dw_cuda(x, w, scale, offset, stride, act):
 
 
 def _elementwise(x, scale, offset, act):
-    """act(x * scale + offset) in f32, rounded to x's dtype."""
-    return apply_act(x.float() * scale + offset, act).to(x.dtype)
+    """act(x * scale + offset) in the statistics dtype (f32, float64 for
+    float64 x), rounded to x's dtype."""
+    return apply_act(x.to(stat_dtype(x.dtype)) * scale + offset,
+                     act).to(x.dtype)
 
 
 def _dw_weight(w, dtype):
@@ -259,7 +263,7 @@ def fused_dw_plain(x, w, scale, offset, stride, act):
     y = F.conv2d(x1, _dw_weight(w, x.dtype), None, stride, KPAD, 1,
                  x.shape[-1])
     y = y.permute(0, 2, 3, 1).contiguous()
-    yf = y.float()
+    yf = y.to(stat_dtype(y.dtype))
     return y, yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2))
 
 
@@ -290,7 +294,8 @@ class FusedDwNormAct(torch.autograd.Function):
         x, w, scale, offset, y = ctx.saved_tensors
         stride, c = ctx.stride, x.shape[-1]
         # sum(y) and sum(y^2) pull back onto y, cast to y's dtype
-        gy_eff = gy + (gs + 2.0 * y.float() * gq).to(y.dtype)
+        gy_eff = gy + (gs + 2.0 * y.to(stat_dtype(y.dtype)) * gq
+                       ).to(y.dtype)
         with torch.enable_grad():
             xd = x.detach().requires_grad_()
             sd = scale.detach().requires_grad_()

@@ -1,5 +1,5 @@
 """The TF-NAS supernet with stacked MixedOps
-(counterpart of tfnas_tpu/models/supernet.py, default lowerings only).
+(counterpart of tfnas_tpu/models/supernet.py).
 
 Every block stores its 8 candidates stacked along a leading op axis at one
 canonical shape: k3 depthwise taps zero-padded to 5x5, e3 widths padded to
@@ -22,16 +22,34 @@ runs data-parallel (the ranks of one Pareto group). Every BN then takes its
 statistics over the group's global batch: the depthwise middle sums its two
 pairs of per-channel sums over the ranks, the kernel's own output sums
 included, and the other BNs go through ops/batchnorm.py with the group.
+
+The JAX package's opt-in lowerings, with its defaults (each computes the
+same function as the default path):
+- remat_blocks: every block forward runs under activation checkpointing
+  and is recomputed in the backward;
+- cond_width_split: a sampled e3 candidate runs at its true width W / 2.
+  The op index is read on the host per block, so such a net runs eagerly
+  only: make_search_steps(capture=True) refuses it;
+- project_einsum=False: the soft path's per-candidate 1x1 project as
+  grouped convolutions instead of one batched product;
+- dw_kernel_split: the soft path's depthwise as true 3x3 and 5x5
+  convolutions over the channel layout [k3e3 | k3e6 | k5e3 | k5e6]. These
+  are cuDNN's, as they are XLA's in the JAX package: no fused kernel runs
+  in the soft blocks then.
+`apply_multi_sampled` runs S sampled sub-networks as S channel groups of
+one pass (the fused kernel over S * W channels); no step uses it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.fused_dw import fold_bn_mask, fused_dw_norm_act
 from ..ops.activations import apply_act
@@ -105,10 +123,16 @@ def _take(t, idx):
 class SuperNetwork:
     """Supernet over the TF-NAS space (or a make_space namespace)."""
 
-    def __init__(self, num_classes, space=None, bn_group=None):
+    def __init__(self, num_classes, space=None, bn_group=None,
+                 remat_blocks=False, cond_width_split=False,
+                 project_einsum=True, dw_kernel_split=False):
         self.ss = space or ss
         self.num_classes = num_classes
         self.bn_group = bn_group
+        self.remat_blocks = bool(remat_blocks)
+        self.cond_width_split = bool(cond_width_split)
+        self.project_einsum = bool(project_einsum)
+        self.dw_kernel_split = bool(dw_kernel_split)
         self.first_stem = ConvLayer(affine=False, **self.ss.STEM_CONV)
         self.second_stem = MBInvertedResBlock(affine=False,
                                               **self.ss.SECOND_STEM)
@@ -224,6 +248,28 @@ class SuperNetwork:
         s, q = all_reduce_sum(torch.cat([s, q]), self.bn_group).chunk(2)
         return s, q, n * group_size(self.bn_group)
 
+    def _masked_sums(self, h, mask):
+        """Per-channel (sum, sum of squares, count) of mask * h in the
+        statistics dtype."""
+        sd = stat_dtype(h.dtype)
+        hm = h.to(sd) * mask.to(sd)[None, :, None, None]
+        return (hm.sum(dim=(0, 2, 3)), (hm * hm).sum(dim=(0, 2, 3)),
+                h.shape[0] * h.shape[2] * h.shape[3])
+
+    def _fold_sums(self, s, q, n, mask):
+        """(scale, offset) of the masked batch-stat BN whose per-channel
+        sums over n values are s and q; with a bn_group, the group's."""
+        s, q, n = self._group_sums(s, q, n)
+        mean = s / n
+        var = q / n - mean * mean
+        return fold_bn_mask(mean, var, mask, BN_EPS)
+
+    @staticmethod
+    def _norm_act(h, scale, offset, act):
+        sd = stat_dtype(h.dtype)
+        return apply_act((h.to(sd) * scale[None, :, None, None]
+                          + offset[None, :, None, None]).to(h.dtype), act)
+
     def _dw_middle(self, h_raw, dwk, mask, act, stride):
         """mask -> BN -> act -> depthwise -> BN -> act over the raw expand
         output h_raw [N, C, H, W]; dwk: [C, 1, 5, 5]; mask: [C].
@@ -233,89 +279,132 @@ class SuperNetwork:
         call. Search BN is batch-stat-only and affine-free. With a
         bn_group, both pairs of sums are the group's (the kernel's backward
         then receives their cotangents summed over the ranks)."""
-        sd = stat_dtype(h_raw.dtype)
-        n1 = h_raw.shape[0] * h_raw.shape[2] * h_raw.shape[3]
-        hm = h_raw.to(sd) * mask.to(sd)[None, :, None, None]
-        s1, q1, n1 = self._group_sums(hm.sum(dim=(0, 2, 3)),
-                                      (hm * hm).sum(dim=(0, 2, 3)), n1)
-        mean1 = s1 / n1
-        var1 = q1 / n1 - mean1 * mean1
-        scale1, offset1 = fold_bn_mask(mean1, var1, mask, BN_EPS)
-
+        scale1, offset1 = self._fold_sums(*self._masked_sums(h_raw, mask),
+                                          mask)
         x_nhwc = h_raw.permute(0, 2, 3, 1).contiguous()
         h2, s2, q2 = fused_dw_norm_act(x_nhwc, dwk[:, 0].permute(1, 2, 0),
                                        scale1, offset1, stride, act)
-        s2, q2, n2 = self._group_sums(s2, q2,
-                                      h2.shape[0] * h2.shape[1] * h2.shape[2])
-        mean2 = s2 / n2
-        var2 = q2 / n2 - mean2 * mean2
-        scale2, offset2 = fold_bn_mask(mean2, var2, mask, BN_EPS)
-        h2 = h2.permute(0, 3, 1, 2)
-        return apply_act((h2.to(sd) * scale2[None, :, None, None]
-                          + offset2[None, :, None, None]).to(h2.dtype), act)
+        scale2, offset2 = self._fold_sums(
+            s2, q2, h2.shape[0] * h2.shape[1] * h2.shape[2], mask)
+        return self._norm_act(h2.permute(0, 3, 1, 2), scale2, offset2, act)
+
+    def _dw_middle_parts(self, h_raw, parts, mask, act, stride):
+        """_dw_middle with the depthwise run as one convolution per
+        channel-contiguous part at its true tap size: parts [(dwk [C_part,
+        1, k, k], k)] cover the channels in order. A zero tap ring adds
+        nothing, so this is the function of one conv over padded taps. No
+        fused kernel runs here (the JAX package's XLA convolutions)."""
+        scale1, offset1 = self._fold_sums(*self._masked_sums(h_raw, mask),
+                                          mask)
+        x1 = self._norm_act(h_raw, scale1, offset1, act)
+        outs, c0 = [], 0
+        for dwk, k in parts:
+            c1 = c0 + dwk.shape[0]
+            outs.append(F.conv2d(x1[:, c0:c1], dwk.to(x1.dtype), None,
+                                 stride, k // 2, 1, c1 - c0))
+            c0 = c1
+        h2 = torch.cat(outs, dim=1)
+        scale2, offset2 = self._fold_sums(*self._masked_sums(h2, mask), mask)
+        return self._norm_act(h2, scale2, offset2, act)
 
     # -- soft (all-branches) block ----------------------------------------
 
-    def _block_soft(self, site, p, pad_mask, w, x, training):
-        """All 8 branches fused; returns sum_o w_o * op_o(x).
+    @staticmethod
+    def _se_gate_seg(pooled, rk, rb, xk, xb, on, act, out_dtype):
+        """SE gates [N, G, W_seg] of G candidates from their pooled
+        features [N, G, W_seg]; 1 for the candidates without SE."""
+        z = torch.einsum("now,ows->nos", pooled, rk.to(pooled.dtype))
+        z = apply_act(z + rb.to(pooled.dtype), act)
+        g = torch.einsum("nos,osw->now", z, xk.to(pooled.dtype))
+        g = g + xb.to(pooled.dtype)
+        return torch.where(on[None, :, None],
+                           torch.sigmoid(g.to(stat_dtype(g.dtype))),
+                           1.0).to(out_dtype)
 
-        pad_mask: [8, W] width masks; w: [8] Gumbel weights. The four e3
-        candidates run at their true width W/2, so the channel layout is
-        [e3 ops (0, 2, 4, 6) x W/2 | e6 ops (1, 3, 5, 7) x W]."""
+    def _soft_segments(self, W):
+        """(first op, op stride, width, true tap size) of each channel
+        segment of the soft block: the ops start::step run at `width`.
+
+        Default: [e3 ops (0, 2, 4, 6) x W/2 | e6 ops (1, 3, 5, 7) x W], one
+        5x5 depthwise over all. dw_kernel_split: [k3e3 (0, 4) | k3e6 (1, 5)
+        | k5e3 (2, 6) | k5e6 (3, 7)], the k3 half at its true 3x3 taps."""
+        we3 = W // 2
+        if self.dw_kernel_split:
+            return ((0, 4, we3, 3), (1, 4, W, 3), (2, 4, we3, KMAX),
+                    (3, 4, W, KMAX))
+        return ((0, 2, we3, KMAX), (1, 2, W, KMAX))
+
+    def _block_soft(self, site, p, pad_mask, w, x, training):
+        """All 8 branches fused; returns sum_o w_o * op_o(x) (the JAX
+        package's _block_soft and, with dw_kernel_split, its
+        _block_soft_ksplit).
+
+        pad_mask: [8, W] width masks; w: [8] Gumbel weights. The e3
+        candidates run at their true width W/2; each segment of
+        `_soft_segments` is a contiguous channel range downstream."""
         n_ops, W = pad_mask.shape
-        we3, half = W // 2, n_ops // 2
-        flat_mask = torch.cat([pad_mask[::2, :we3].reshape(-1),
-                               pad_mask[1::2].reshape(-1)])
+        segs = self._soft_segments(W)
+        sl = [slice(a, None, b) for a, b, _, _ in segs]
+        flat_mask = torch.cat([pad_mask[s, :wd].reshape(-1)
+                               for s, (_, _, wd, _) in zip(sl, segs)])
 
         ek = p["expand"]["kernel"]                        # [8,W,ic,1,1]
-        ek = torch.cat([ek[::2, :we3].reshape(half * we3, site.ic, 1, 1),
-                        ek[1::2].reshape(half * W, site.ic, 1, 1)])
-        h = self._conv(x, ek)
+        h = self._conv(x, torch.cat([
+            ek[s, :wd].reshape(-1, site.ic, 1, 1)
+            for s, (_, _, wd, _) in zip(sl, segs)]))
 
         dk = p["depth"]["kernel"]                         # [8,W,1,5,5]
-        dk = torch.cat([dk[::2, :we3].reshape(half * we3, 1, KMAX, KMAX),
-                        dk[1::2].reshape(half * W, 1, KMAX, KMAX)])
-        h = self._dw_middle(h, dk, flat_mask, site.act, site.stride)
+        if not self.dw_kernel_split:
+            h = self._dw_middle(h, torch.cat([
+                dk[s, :wd].reshape(-1, 1, KMAX, KMAX)
+                for s, (_, _, wd, _) in zip(sl, segs)]), flat_mask,
+                site.act, site.stride)
+        else:
+            parts = []  # adjacent segments with equal taps share a conv
+            for s, (_, _, wd, k) in zip(sl, segs):
+                off = (KMAX - k) // 2
+                dwk = dk[s, :wd, :, off:KMAX - off, off:KMAX - off]
+                dwk = dwk.reshape(-1, 1, k, k)
+                if parts and parts[-1][1] == k:
+                    parts[-1] = (torch.cat([parts[-1][0], dwk]), k)
+                else:
+                    parts.append((dwk, k))
+            h = self._dw_middle_parts(h, parts, flat_mask, site.act,
+                                      site.stride)
 
-        se = p["se"]
-        se_on = self._se_on_tensor(h.device)
-        n = h.shape[0]
-        h3, h6 = h[:, :half * we3], h[:, half * we3:]
-
-        def se_gate(hs, width, rk, rb, xk, xb, on):
-            pooled = hs.mean(dim=(2, 3)).reshape(n, half, width)
-            z = torch.einsum("now,ows->nos", pooled, rk.to(pooled.dtype))
-            z = apply_act(z + rb.to(pooled.dtype), site.act)
-            g = torch.einsum("nos,osw->now", z, xk.to(pooled.dtype))
-            g = g + xb.to(pooled.dtype)
-            gate = torch.where(on[None, :, None],
-                               torch.sigmoid(g.to(stat_dtype(g.dtype))), 1.0)
-            return gate.reshape(n, half * width, 1, 1).to(hs.dtype)
-
-        h3 = h3 * se_gate(h3, we3, se["reduce_kernel"][::2, :we3],
-                          se["reduce_bias"][::2],
-                          se["expand_kernel"][::2, :, :we3],
-                          se["expand_bias"][::2, :we3], se_on[::2])
-        h6 = h6 * se_gate(h6, W, se["reduce_kernel"][1::2],
-                          se["reduce_bias"][1::2], se["expand_kernel"][1::2],
-                          se["expand_bias"][1::2], se_on[1::2])
-
-        # per-branch 1x1 project as one batched product over the op axis
-        pk = p["project"]["kernel"]                       # [8,oc,W,1,1]
+        se, se_on = p["se"], self._se_on_tensor(h.device)
         nb, hh, ww = h.shape[0], h.shape[2], h.shape[3]
-        y3 = torch.einsum("nhwgc,goc->nhwgo",
-                          h3.permute(0, 2, 3, 1).reshape(nb, hh, ww, half,
-                                                         we3),
-                          pk[::2, :, :we3, 0, 0].to(h.dtype))
-        y6 = torch.einsum("nhwgc,goc->nhwgo",
-                          h6.permute(0, 2, 3, 1).reshape(nb, hh, ww, half, W),
-                          pk[1::2, :, :, 0, 0].to(h.dtype))
-        y = torch.cat([y3, y6], dim=3).reshape(nb, hh, ww, n_ops * site.oc)
+        pk = p["project"]["kernel"]                       # [8,oc,W,1,1]
+        ys, c0 = [], 0
+        for s, (_, _, wd, _) in zip(sl, segs):
+            g = len(range(n_ops)[s])
+            c1 = c0 + g * wd
+            hs = h[:, c0:c1]
+            gate = self._se_gate_seg(
+                hs.mean(dim=(2, 3)).reshape(nb, g, wd),
+                se["reduce_kernel"][s, :wd], se["reduce_bias"][s],
+                se["expand_kernel"][s, :, :wd], se["expand_bias"][s, :wd],
+                se_on[s], site.act, hs.dtype)
+            hs = hs * gate.reshape(nb, g * wd, 1, 1)
+            # per-branch 1x1 project: one batched product over the op axis,
+            # or a grouped convolution; either gives [N, h, w, G, oc]
+            if self.project_einsum:
+                ys.append(torch.einsum(
+                    "nhwgc,goc->nhwgo",
+                    hs.permute(0, 2, 3, 1).reshape(nb, hh, ww, g, wd),
+                    pk[s, :, :wd, 0, 0].to(h.dtype)))
+            else:
+                ys.append(self._conv(
+                    hs, pk[s, :, :wd].reshape(g * site.oc, wd, 1, 1),
+                    groups=g).permute(0, 2, 3, 1).reshape(
+                        nb, hh, ww, g, site.oc))
+            c0 = c1
+        y = torch.cat(ys, dim=3).reshape(nb, hh, ww, n_ops * site.oc)
         y, _ = batch_norm(y.permute(0, 3, 1, 2), {}, {}, affine=False,
                           training=training, group=self.bn_group)
 
         # weighted cross-branch sum after the per-branch project BN
-        w_perm = torch.cat([w[::2], w[1::2]])
+        w_perm = torch.cat([w[s] for s in sl])
         y = torch.einsum("nochw,o->nchw",
                          y.reshape(nb, n_ops, site.oc, hh, ww),
                          w_perm.to(y.dtype))
@@ -327,18 +416,25 @@ class SuperNetwork:
 
     def _block_sampled(self, site, p, pad_mask, op_idx, x, training):
         """One branch, its weights gathered from the stacked arrays by the
-        0-dim integer tensor op_idx."""
-        mask = _take(pad_mask, op_idx)
-        h = self._conv(x, _take(p["expand"]["kernel"], op_idx))
-        h = self._dw_middle(h, _take(p["depth"]["kernel"], op_idx), mask,
-                            site.act, site.stride)
+        0-dim integer tensor op_idx.
+
+        cond_width_split runs an e3 pick (even op index) at W/2 = 4 * ic,
+        exact because its upper half is mask-zero padding. It reads op_idx
+        on the host, so it waits for the card once per block."""
+        width = site.width
+        if self.cond_width_split and int(op_idx) % 2 == 0:
+            width //= 2
+        mask = _take(pad_mask, op_idx)[:width]
+        h = self._conv(x, _take(p["expand"]["kernel"], op_idx)[:width])
+        h = self._dw_middle(h, _take(p["depth"]["kernel"], op_idx)[:width],
+                            mask, site.act, site.stride)
 
         se = p["se"]
         pooled = h.mean(dim=(2, 3))                         # [N, W]
-        rk = _take(se["reduce_kernel"], op_idx)
+        rk = _take(se["reduce_kernel"], op_idx)[:width]
         rb = _take(se["reduce_bias"], op_idx)
-        xk = _take(se["expand_kernel"], op_idx)
-        xb = _take(se["expand_bias"], op_idx)
+        xk = _take(se["expand_kernel"], op_idx)[:, :width]
+        xb = _take(se["expand_bias"], op_idx)[:width]
         z = apply_act(pooled @ rk.to(h.dtype) + rb.to(h.dtype), site.act)
         g = z @ xk.to(h.dtype) + xb.to(h.dtype)
         has_se = _take(self._se_on_tensor(h.device), op_idx)
@@ -346,7 +442,46 @@ class SuperNetwork:
                            1.0)
         h = h * gate[:, :, None, None].to(h.dtype)
 
-        y = self._conv(h, _take(p["project"]["kernel"], op_idx))
+        y = self._conv(h, _take(p["project"]["kernel"], op_idx)[:, :width])
+        y, _ = batch_norm(y, {}, {}, affine=False, training=training,
+                          group=self.bn_group)
+        if site.has_residual:
+            y = y + x
+        return y
+
+    # -- multi-sample (grouped) block -------------------------------------
+
+    def _block_multi(self, site, p, pad_mask, op_idx_s, x, training):
+        """S sampled candidates as S disjoint channel groups of one pass.
+
+        op_idx_s: integer [S]; x: [N, S * ic, H, W], group s carrying sample
+        set s. Returns [N, S * oc, H', W']. The function of S _block_sampled
+        calls (grouped convolutions and per-channel BN keep the groups
+        apart); the depthwise middle runs over S * W channels."""
+        S, W = op_idx_s.shape[0], site.width
+        mask = pad_mask.index_select(0, op_idx_s).reshape(-1)
+        h = self._conv(x, p["expand"]["kernel"].index_select(0, op_idx_s)
+                       .reshape(S * W, site.ic, 1, 1), groups=S)
+        h = self._dw_middle(h, p["depth"]["kernel"].index_select(
+            0, op_idx_s).reshape(S * W, 1, KMAX, KMAX), mask, site.act,
+            site.stride)
+
+        se = p["se"]
+        pooled = h.mean(dim=(2, 3)).reshape(-1, S, W)       # [N, S, W]
+        rk = se["reduce_kernel"].index_select(0, op_idx_s)  # [S, W, SE]
+        rb = se["reduce_bias"].index_select(0, op_idx_s)
+        xk = se["expand_kernel"].index_select(0, op_idx_s)
+        xb = se["expand_bias"].index_select(0, op_idx_s)
+        z = torch.einsum("nsw,swe->nse", pooled, rk.to(h.dtype))
+        z = apply_act(z + rb.to(h.dtype), site.act)
+        g = torch.einsum("nse,sew->nsw", z, xk.to(h.dtype)) + xb.to(h.dtype)
+        has_se = self._se_on_tensor(h.device).index_select(0, op_idx_s)
+        gate = torch.where(has_se[None, :, None],
+                           torch.sigmoid(g.to(stat_dtype(g.dtype))), 1.0)
+        h = h * gate.reshape(h.shape[0], S * W, 1, 1).to(h.dtype)
+
+        y = self._conv(h, p["project"]["kernel"].index_select(0, op_idx_s)
+                       .reshape(S * site.oc, W, 1, 1), groups=S)
         y, _ = batch_norm(y, {}, {}, affine=False, training=training,
                           group=self.bn_group)
         if site.has_residual:
@@ -354,6 +489,16 @@ class SuperNetwork:
         return y
 
     # -- block dispatch (hooks for the hybrid subclass) -------------------
+
+    def _maybe_remat(self, fn):
+        """fn under activation checkpointing with remat_blocks: its
+        activations are dropped and the backward recomputes its forward.
+        No block draws random numbers, so no RNG state is stashed (a CUDA
+        graph capture could not stash it)."""
+        if not self.remat_blocks:
+            return fn
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
 
     def _block_masks(self, masks, site):
         """The block's slice of the device-mask tree."""
@@ -364,14 +509,14 @@ class SuperNetwork:
         def fn(p, masks, op_idx, x):
             return self._block_sampled(site, p, self._block_masks(masks, site),
                                        op_idx, x, training)
-        return fn
+        return self._maybe_remat(fn)
 
     def _soft_block_fn(self, site, training):
         """fn(p, masks, w, x): the block's all-candidates soft forward."""
         def fn(p, masks, w, x):
             return self._block_soft(site, p, self._block_masks(masks, site),
                                     w, x, training)
-        return fn
+        return self._maybe_remat(fn)
 
     # -- public forwards ---------------------------------------------------
 
@@ -416,6 +561,37 @@ class SuperNetwork:
             self._head(params, self._sampled_trunk(
                 params, arch_params, masks, s, idx, training), training)
             for idx in (idx_a, idx_b))
+
+    def apply_multi_sampled(self, params, arch_params, masks, x, op_indices,
+                            *, training=True):
+        """S hard-sampled forwards as S channel groups of one pass.
+
+        op_indices: integer [S, 18]. The stem runs once and its output is
+        tiled S times along the channels; the head is a grouped convolution
+        over the tiled feature_mix_layer kernel. Returns logits [S, N,
+        num_classes], the function of S apply_sampled calls."""
+        S = op_indices.shape[0]
+        h = self._stem(params, x.permute(0, 3, 1, 2), training).repeat(
+            1, S, 1, 1)
+
+        def block(site, p, h):
+            return self._maybe_remat(functools.partial(
+                self._block_multi, site, training=training))(
+                p, self._block_masks(masks, site),
+                op_indices[:, site.global_idx], h)
+        h = self._trunk(params, arch_params, h, block)
+
+        fml = self.feature_mix_layer
+        h = self._conv(h, params["feature_mix_layer"]["conv"]["kernel"]
+                       .repeat(S, 1, 1, 1), groups=S)
+        h, _ = batch_norm(h, {}, {}, affine=False, training=training,
+                          group=self.bn_group)
+        pooled = apply_act(h, fml.act_func).mean(dim=(2, 3)).reshape(
+            -1, S, self.ss.HEAD_FEATURES)
+        lin = params["classifier"]["linear"]
+        logits = torch.einsum("nsf,fc->nsc", pooled,
+                              lin["kernel"].to(pooled.dtype))
+        return (logits + lin["bias"].to(logits.dtype)).transpose(0, 1)
 
     def apply_soft(self, params, arch_params, masks, x, gumbel_weights,
                    lat_vec, *, training=True):

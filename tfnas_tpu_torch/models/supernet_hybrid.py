@@ -33,9 +33,10 @@ from .supernet import SuperNetwork, _none_tree
 class HybridSuperNetwork(SuperNetwork):
     """SuperNetwork over the 9-op hybrid conv/ViT space."""
 
-    def __init__(self, num_classes, bn_group=None):
-        # the ViT candidates' LayerNorms need no group (ops/attention.py)
-        super().__init__(num_classes, bn_group=bn_group)
+    def __init__(self, num_classes, **kw):
+        # kw: SuperNetwork's bn_group and lowering flags. The ViT
+        # candidates' LayerNorms need no group (ops/attention.py)
+        super().__init__(num_classes, **kw)
         self.vit = hs.vit_sites()   # global_idx -> (stage, block, entry)
         # search-time ViT blocks: the widest MLP, LN without affine (as the
         # search BNs are affine-free)
@@ -109,29 +110,31 @@ class HybridSuperNetwork(SuperNetwork):
     def _sampled_block_fn(self, site, training):
         if site.global_idx not in self.vit:
             return super()._sampled_block_fn(site, training)
-        conv = super()._sampled_block_fn(site, training)
         vit = self._vit_fn(site, training)
 
         def fn(p, masks, op_idx, x):
-            mb = conv(p, masks, op_idx.clamp(max=ss.NUM_OPS - 1), x)
+            mb = self._block_sampled(site, p, self._block_masks(masks, site),
+                                     op_idx.clamp(max=ss.NUM_OPS - 1), x,
+                                     training)
             return torch.where(op_idx == hs.VIT_OP_IDX, vit(p, masks, x), mb)
-        return fn
+        return self._maybe_remat(fn)
 
     def _soft_block_fn(self, site, training):
-        conv = super()._soft_block_fn(site, training)
         if site.global_idx not in self.vit:
+            conv = super()._soft_block_fn(site, training)
             # w[8] == 0 here by the validity mask, and w[:8] sums to 1
             return lambda p, masks, w, x: conv(p, masks, w[:ss.NUM_OPS], x)
         vit = self._vit_fn(site, training)
 
         def fn(p, masks, w, x):
-            mb = conv(p, masks, w[:ss.NUM_OPS], x)
+            mb = self._block_soft(site, p, self._block_masks(masks, site),
+                                  w[:ss.NUM_OPS], x, training)
             w8 = w[hs.VIT_OP_IDX].to(mb.dtype)
             y = mb + w8 * vit(p, masks, x)
             if site.has_residual:
                 y = y - w8 * x
             return y
-        return fn
+        return self._maybe_remat(fn)
 
     def apply_multi_sampled(self, *a, **kw):
         raise NotImplementedError(

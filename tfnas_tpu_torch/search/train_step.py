@@ -229,8 +229,16 @@ def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
     of one Pareto group; `net` then takes its BN statistics over it too):
     the weight steps average their gradients, loss and accuracies over its
     ranks and the arch step its gradients and loss_a, by one collective
-    each. Every rank must then make the same draws."""
+    each. Every rank must then make the same draws.
+
+    Raises ValueError for capture=True with a net built with
+    cond_width_split: it reads each sampled op index on the host, which a
+    graph cannot (the JAX package forbids it under vmap)."""
     del num_classes  # the logits carry it
+    if capture and net.cond_width_split:
+        raise ValueError("cond_width_split reads every sampled op index on "
+                         "the host, so its steps cannot be captured: make "
+                         "them with capture=False")
 
     def _weight_update(params, mom, update_masks, grads, lr):
         return sgd_momentum_update(params, grads, mom, update_masks, lr=lr,

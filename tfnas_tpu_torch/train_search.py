@@ -13,7 +13,10 @@ DataLoader and the card's prefetcher and are normalised on the card;
 Warmup epochs take one Gumbel-sampled weight step per batch; later epochs
 take a bi-sampling weight step per batch and a soft arch step after every
 second one, starting with the first (the JAX driver's order), then rescale
-the widths against the latency table. With --scan_units K > 1, full groups
+the widths against the latency table. --profile_steps N traces the first N
+steps of the first epoch with torch.profiler into <run_dir>/profile/ (not
+when that epoch runs scanned units); TFNAS_STEP_TIMING=1 logs each step's
+batch fetch and dispatch ms. With --scan_units K > 1, full groups
 of 2K batches run as K units of two weight steps followed by one arch step
 (the JAX driver's scanned schedule) and the epoch's last batches step by
 step in the first order. On the card every step is replayed from a CUDA
@@ -31,6 +34,7 @@ import argparse
 import copy
 import itertools
 import logging
+import os
 import pickle
 import time
 
@@ -104,6 +108,9 @@ parser.add_argument('--scan_units', type=int, default=1,
                          'of 2K batches as K units of (2 weight steps + 1 '
                          'arch step) per call, as the JAX driver\'s scan '
                          'does')
+parser.add_argument('--profile_steps', type=int, default=0,
+                    help='trace the first N steps of the first epoch with '
+                         'torch.profiler into <run_dir>/profile')
 parser.add_argument('--device', type=str, default='cuda')
 parser.add_argument('--eager', action='store_true',
                     help='run the steps eagerly on the card instead of '
@@ -396,6 +403,41 @@ def rescale_widths(arch_params, params, mc_mask_dddict, space, lat_lookup,
     return new_masks, before_lat, after_lat
 
 
+def profiled(batches, n, out_dir, device):
+    """Yield `batches`; torch.profiler (CPU and, on the card, CUDA
+    activities: CUPTI records the kernels of replayed CUDA graphs too)
+    traces the steps run on the first n of them. The Chrome trace is
+    written into out_dir once the n-th step has run."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    it = iter(batches)
+    with profile(activities=acts) as prof:
+        yield from itertools.islice(it, n)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    logging.info('profiler trace written to %s', path)
+    yield from it
+
+
+def timed(batches):
+    """Yield `batches`, logging per step the ms spent fetching its batch
+    and the ms until the next fetch: the step's dispatch (on the card, the
+    host's enqueueing, not the card's time)."""
+    t_prev = time.perf_counter()
+    for batch in batches:
+        t_fetch = time.perf_counter()
+        yield batch
+        t_done = time.perf_counter()
+        logging.info("timing: fetch %.0fms dispatch %.0fms",
+                     (t_fetch - t_prev) * 1000, (t_done - t_fetch) * 1000)
+        t_prev = t_done
+
+
 def masks_to_numpy(mc_mask_dddict):
     """{stage: {block: {op: numpy mask}}}, as the checkpoints hold it."""
     return {st: {b: {o: np.asarray(m) for o, m in d.items()}
@@ -511,6 +553,7 @@ def main(argv=None):
 
     # uint8 batches are normalised on the card; float batches only cast
     prep = device_normalizer(dtype)
+    timing = os.environ.get("TFNAS_STEP_TIMING", "") == "1"
 
     total_start = time.time()
     for epoch in range(start_epoch, args.epochs):
@@ -519,10 +562,16 @@ def main(argv=None):
         logging.info('Epoch: %d lr: %e T: %e', epoch, lr, T)
         epoch_start = time.time()
         warm = epoch < args.warmup_epochs
+        batches = DevicePrefetcher(train_iter(epoch), device)
+        stepwise = warm or args.scan_units == 1  # not scanned units
+        if timing and stepwise:
+            batches = timed(batches)
+        if args.profile_steps > 0 and epoch == start_epoch and stepwise:
+            batches = profiled(batches, args.profile_steps,
+                               f"{run_dir}/profile", device)
         macc = search.train_epoch(
-            DevicePrefetcher(train_iter(epoch), device),
-            lambda: DevicePrefetcher(val_iter(epoch), device), draws, warm,
-            prep, log=logging.info, print_freq=args.print_freq)
+            batches, lambda: DevicePrefetcher(val_iter(epoch), device), draws,
+            warm, prep, log=logging.info, print_freq=args.print_freq)
         epoch_avg = _mavg(macc.tolist())
         if not warm:
             T *= args.T_decay
