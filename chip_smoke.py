@@ -6,7 +6,10 @@
 Phases, each printing one JSON line as soon as it ends:
 
 1. env: the card (nvidia-smi name and power limit), torch and CUDA
-   versions, and the nvcc build of the kernel library (sm_90a).
+   versions, the nvcc build of the kernel library (sm_90a), and what the
+   host offers the port: g++ and libjpeg's header (`gxx`, `jpeglib_h`: the
+   C++ image pipeline), and whether PIL and triton import (`pil`,
+   `triton`: each one's version, or false).
 2. kernel: the hand-written fused depthwise kernel against its plain
    PyTorch version at every (H, C, stride, act) of the search's soft and
    sampled sites at batch 32, and at ragged edge shapes (N 1 and 3, H and
@@ -122,8 +125,33 @@ Phases, each printing one JSON line as soon as it ends:
    tfnas_tpu_torch.tools_profile --only "sampled fwd"` as a user runs it.
    Phase 2 checks and times the kernel at the lowerings' widths too.
 
-The line before the last holds the kernels' summary; the last line is
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
+12. tools (data and tools, about 2.5 min): the kernel's forward (y and
+   both sums, and a rerun bit for bit) against its plain version at
+   batches 128 and 256, the occupancy sweep's, at the largest site of
+   each stride (up to 2.5e9 input elements), f32 with TF32 off and bf16;
+   a proxy set of real JPEGs (dataset/make_proxy_dataset.py: 8 classes,
+   24 train and 8 val images each) searched by `train_search` from CUDA
+   graphs (one warmup and one search epoch of 4 batches, full width),
+   whose log must name its decoder once (`image decode: pil (<why>)` where
+   the C++ pipeline cannot be built) and whose replays must hold both strides;
+   then the root tools as a user runs them (`python -m`), subprocesses in
+   two lanes at once, each cut to fit: `tools_occupancy_ab --batches 32,64
+   --n_timed 4 --warm 2`, `tools_hybrid_bench --iters 3` and
+   `tools_eval_throughput` at batch 256 in one lane; the occupancy tool
+   with --remat_blocks, `tools_scan_ab --units 1,2 --timed_units 2
+   --rounds 1` and `tools_loader_throughput` on the proxy set in the
+   other. Each lane's tools are capped at a share of the card's memory
+   (LANE_FRACTIONS, above their peaks alone), and the phase fails first
+   if the caps and the tools' contexts do not fit in what is free, so
+   tools that overlap cannot run the card out of memory; the card's
+   memory in use is sampled while the lanes run (`lanes_memory`). Each
+   must exit 0 with a JSON last line, and each search tool (occupancy,
+   scan, hybrid) must run both strides (eager launches plus replayed
+   nodes, from its last line).
+
+The line before the last holds the kernels' summary, with each path's
+launches (`launches_tools`: the phase 12 search tools', by stride); the
+last line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
 does a run without a card, a run without the package beside this file, and
 a run past the 10-minute deadline.
 """
@@ -138,6 +166,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 DEADLINE_S = 600
@@ -182,6 +211,12 @@ def phase_env(torch, fused_dw):
                            input="#include <cstdio>\n#include <jpeglib.h>\n",
                            capture_output=True, text=True, timeout=60) \
         if shutil.which("g++") else None
+    versions = {}
+    for mod in ("PIL", "triton"):  # whether each imports here, its version
+        proc = subprocess.run(
+            [sys.executable, "-c", f"import {mod}; print({mod}.__version__)"],
+            capture_output=True, text=True, timeout=120)
+        versions[mod] = proc.stdout.strip() if proc.returncode == 0 else False
     emit({"phase": "env", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -190,7 +225,8 @@ def phase_env(torch, fused_dw):
           "nvcc_flags": " ".join(fused_dw.NVCC_FLAGS),
           "ptxas": fused_dw.build_info["log"][-800:],
           "gxx": shutil.which("g++"),
-          "jpeglib_h": probe is not None and probe.returncode == 0})
+          "jpeglib_h": probe is not None and probe.returncode == 0,
+          "pil": versions["PIL"], "triton": versions["triton"]})
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -296,6 +332,23 @@ def _bound(x, w, stride):
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 
+def _forward_errors(got, want, bf):
+    """(max |y error|, its tolerance, sum and sum-of-squares errors over
+    their tolerances) of the kernel's (y, sum y, sum y^2) against the plain
+    version's."""
+    yf = want[0].float()
+    err_y = (got[0].float() - yf).abs().max().item()
+    tol_y = (2e-2 if bf else 2e-4) * max(1.0, yf.abs().max().item())
+    # sums: the kernel sums its f32 accumulator, the plain version the
+    # rounded y (bf16: up to 2^-8 of sum |y| apart)
+    rel = 2 ** -7 if bf else 1e-5
+    err_s = ((got[1] - want[1]).abs()
+             / (rel * yf.abs().sum((0, 1, 2)) + 1e-3)).max().item()
+    err_q = ((got[2] - want[2]).abs()
+             / (rel * (yf * yf).sum((0, 1, 2)) + 1e-3)).max().item()
+    return err_y, tol_y, err_s, err_q
+
+
 def _check(torch, fused_dw, gen, n, h, w, c, stride, act, dtype):
     """The kernel (forward, backward) against the plain version on one
     shape, and its sums over two runs; returns the case's JSON record."""
@@ -311,16 +364,8 @@ def _check(torch, fused_dw, gen, n, h, w, c, stride, act, dtype):
     rq = torch.randn(c, generator=gen, device="cuda") * 1e-3
     for (y, s, q), a in ((got, args), (want, ref_args)):
         ((y.float() * ry).sum() + (s * rs).sum() + (q * rq).sum()).backward()
-    yf = want[0].float()
-    err_y = (got[0].float() - yf).abs().max().item()
-    tol_y = (2e-2 if bf else 2e-4) * max(1.0, yf.abs().max().item())
-    # sums: the kernel sums its f32 accumulator, the plain version the
-    # rounded y (bf16: up to 2^-8 of sum |y| apart)
-    rel = 2 ** -7 if bf else 1e-5
-    err_s = ((got[1] - want[1]).abs()
-             / (rel * yf.abs().sum((0, 1, 2)) + 1e-3)).max().item()
-    err_q = ((got[2] - want[2]).abs()
-             / (rel * (yf * yf).sum((0, 1, 2)) + 1e-3)).max().item()
+    with torch.no_grad():
+        err_y, tol_y, err_s, err_q = _forward_errors(got, want, bf)
     grad_errs = [((a.grad - b.grad).abs().max()
                   / b.grad.abs().max().clamp_min(1e-12)).item()
                  for a, b in zip(args, ref_args)]
@@ -2246,6 +2291,231 @@ def phase_lowerings(torch, fused_dw, tmpdir):
     return counts
 
 
+# -- phase 12 -----------------------------------------------------------------
+
+LARGE_BATCHES = (128, 256)  # the search batches the occupancy tool sweeps
+# The card's share each lane of phase 12's tools may reserve. Alone at the
+# smoke's sizes (on an H100 80GB HBM3, 85.0 GB) the tools peak at
+# 46.6 GB (occupancy), 35.3 (hybrid) and 1.9 (eval) in the first lane, and
+# 17.4 (occupancy with remat), 23.4 (scan) and the loader's little in the
+# second. The rest of the card is the smoke's own and each tool process's
+# context (TOOL_CONTEXT_GB, outside the allocator's count).
+LANE_FRACTIONS = (0.575, 0.30)
+TOOL_CONTEXT_GB = 1.5
+
+
+def _check_forward(torch, fused_dw, gen, n, h, c, stride, act, dtype):
+    """The kernel's forward (y and the two sums) against the plain version
+    at one shape, and its rerun bit for bit; no backward (cuDNN's), so
+    that batch 256 at the largest sites fits beside the inputs."""
+    bf = dtype == torch.bfloat16
+    x, wk, scale, offset = _inputs(torch, gen, h, c, dtype, n)
+    with torch.no_grad():
+        got = fused_dw.fused_dw_cuda(x, wk, scale, offset, stride, act)
+        want = fused_dw.fused_dw_plain(x, wk, scale, offset, stride, act)
+        err_y, tol_y, err_s, err_q = _forward_errors(got, want, bf)
+        del want
+        again = fused_dw.fused_dw_cuda(x, wk, scale, offset, stride, act)
+        same = all(torch.equal(a, b) for a, b in zip(again, got))
+    ok = err_y <= tol_y and err_s <= 1.0 and err_q <= 1.0 and same
+    return {"phase": "tools", "step": "kernel_large_batch", "n": n, "h": h,
+            "c": c, "stride": stride, "act": act,
+            "dtype": "bf16" if bf else "f32", "elements": x.numel(),
+            "max_abs_err_y": err_y, "tol_y": tol_y,
+            "sum_err_over_tol": err_s, "sumsq_err_over_tol": err_q,
+            "bit_identical_rerun": same, "ok": ok}
+
+
+# A tool as `python -m tfnas_tpu_torch.<tool>` runs it, under a cap on its
+# share of the card's memory (the caching allocator raises past it, graph
+# pools included), with its peak reserved memory as stderr's last line.
+_CAPPED_TOOL = """import json, runpy, sys, torch
+torch.cuda.set_per_process_memory_fraction(float(sys.argv.pop(1)))
+tool = sys.argv.pop(1)
+try:
+    runpy.run_module(tool, run_name="__main__", alter_sys=True)
+finally:
+    print(json.dumps({"peak_reserved_GB":
+                      torch.cuda.max_memory_reserved() / 1e9}),
+          file=sys.stderr, flush=True)
+"""
+
+
+def _tool_lane(here, commands, fraction, timeout):
+    """Run the tool commands one after another, each capped at `fraction`
+    of the card's memory; yields (name, argv, proc, seconds)."""
+    for name, argv in commands:
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _CAPPED_TOOL, str(fraction),
+             f"tfnas_tpu_torch.{argv[0]}", *argv[1:]],
+            cwd=here, capture_output=True, text=True, timeout=timeout)
+        yield name, argv, proc, time.perf_counter() - t
+
+
+def _peak_reserved(stderr):
+    """The capped tool's peak reserved GB (stderr's last line), or None
+    when it did not get there."""
+    try:
+        return json.loads(stderr.strip().splitlines()[-1])["peak_reserved_GB"]
+    except (IndexError, KeyError, TypeError, ValueError):
+        return None
+
+
+def phase_tools(torch, fused_dw, tss, tmpdir):
+    """Data and tools: the kernel against its plain version at the
+    occupancy sweep's batches (128, 256) at the largest site of each
+    stride, f32 (TF32 off) and bf16; a small proxy set of real JPEGs
+    (dataset/make_proxy_dataset.py) searched from CUDA graphs through the
+    image list (PIL decode where the C++ pipeline cannot be built), with
+    its decoder line in the log and both strides among its replays; then
+    the port's tools as subprocesses, in two lanes at once, each cut to
+    fit and each lane capped at its share of the card's memory:
+    tools_occupancy_ab, tools_hybrid_bench and tools_eval_throughput;
+    tools_occupancy_ab --remat_blocks, tools_scan_ab and
+    tools_loader_throughput on the proxy set. Every tool must exit 0 with
+    a JSON last line, and the search tools must launch both strides.
+    Returns the tools' kernel executions (eager launches + replayed
+    nodes) by stride."""
+    import concurrent.futures as cf
+    from tfnas_tpu_torch import train_search
+    from tfnas_tpu_torch.data import image_decoder
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    _release(torch)  # the lowerings phase's graph pools
+    t_phase = time.perf_counter()
+    proxy = os.path.join(tmpdir, "proxy")
+    gen_proxy = subprocess.Popen(
+        [sys.executable, os.path.join(here, "dataset",
+                                      "make_proxy_dataset.py"),
+         "--out_root", proxy, "--num_classes", "8", "--train_per_class",
+         "24", "--val_per_class", "8"], stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    failures = []
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        sites = main_path_sites(tss)
+        for stride in (1, 2):
+            h, c, _, act, _ = max((s for s in sites if s[2] == stride),
+                                  key=lambda s: s[0] * s[0] * s[1])
+            for n in LARGE_BATCHES:
+                for dtype in (torch.float32, torch.bfloat16):
+                    rec = _check_forward(torch, fused_dw, gen, n, h, c,
+                                         stride, act, dtype)
+                    emit(rec)
+                    if not rec["ok"]:
+                        failures.append(rec)
+                    _release(torch)
+        torch.backends.cudnn.allow_tf32 = True
+        _, err = gen_proxy.communicate(timeout=120)
+    finally:
+        if gen_proxy.poll() is None:
+            gen_proxy.kill()
+            gen_proxy.wait()
+    if gen_proxy.returncode != 0:
+        raise AssertionError(f"make_proxy_dataset failed: {err[-2000:]}")
+
+    # the real-JPEG search, replayed from graphs
+    lut = os.path.join(here, "latency_pkl", "latency_h100.pkl")
+    fused_dw.reset_launches()
+    t = time.perf_counter()
+    run = train_search.main([
+        "--img_root", proxy, "--train_list",
+        os.path.join(proxy, "proxy_train.txt"), "--val_list",
+        os.path.join(proxy, "proxy_val.txt"), "--epochs", "2",
+        "--warmup_epochs", "1", "--steps_per_epoch", "4", "--batch_size",
+        str(BATCH), "--num_classes", "8", "--lookup_path", lut,
+        "--target_lat", "5.0", "--save_freq", "100", "--save",
+        os.path.join(tmpdir, "jpeg_search")])
+    decoder = image_decoder()
+    with open(os.path.join(run, "log.txt")) as f:
+        lines = [l for l in f if "image decode:" in l]
+    rec = {"phase": "tools", "step": "jpeg_search", "seconds":
+           time.perf_counter() - t, "decoder": decoder,
+           "decode_lines": [l[l.index("image decode:"):].strip()
+                            for l in lines],
+           "replayed": dict(fused_dw.replayed),
+           "launches": dict(fused_dw.launches)}
+    emit(rec)
+    if not (len(lines) == 1 and lines[0].rstrip().endswith(
+            f"image decode: {decoder}") and all(rec["replayed"].values())):
+        failures.append(rec)
+    shutil.rmtree(run)
+    _release(torch)
+
+    lanes = [
+        [("tools_occupancy_ab", ["tools_occupancy_ab", "--batches", "32,64",
+                                 "--n_timed", "4", "--warm", "2"]),
+         ("tools_hybrid_bench", ["tools_hybrid_bench", "--iters", "3"]),
+         ("tools_eval_throughput", ["tools_eval_throughput", "--batches",
+                                    str(EVAL_BATCH)])],
+        [("tools_occupancy_ab --remat_blocks",
+          ["tools_occupancy_ab", "--batches", "32,64", "--n_timed", "4",
+           "--warm", "2", "--remat_blocks"]),
+         ("tools_scan_ab", ["tools_scan_ab", "--units", "1,2",
+                            "--timed_units", "2", "--rounds", "1"]),
+         ("tools_loader_throughput", [
+             "tools_loader_throughput", "--img_root", proxy, "--list",
+             os.path.join(proxy, "proxy_train.txt"), "--batches", "4",
+             "--chip_steps_per_sec", "5.65"])]]
+    # the two lanes' caps and the smoke's own share add up to the card, so
+    # no pair of tools that happens to overlap can run it out of memory
+    stop, peak = threading.Event(), [0]
+
+    def sample():  # the card's memory in use, by every process on it
+        while not stop.wait(0.25):
+            free, total = torch.cuda.mem_get_info()
+            peak[0] = max(peak[0], total - free)
+
+    base_free, card = torch.cuda.mem_get_info()
+    need = sum(LANE_FRACTIONS) * card + len(lanes) * TOOL_CONTEXT_GB * 1e9
+    if base_free < need:
+        raise AssertionError(
+            f"tools phase: {base_free / 1e9:.2f} GB free on the card, the "
+            f"lanes' caps and contexts need {need / 1e9:.2f}")
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        with cf.ThreadPoolExecutor(len(lanes)) as pool:
+            results = [r for lane in pool.map(
+                lambda lane: list(_tool_lane(here, lane[0], lane[1], 300)),
+                zip(lanes, LANE_FRACTIONS)) for r in lane]
+    finally:
+        stop.set()
+        sampler.join()
+    emit({"phase": "tools", "step": "lanes_memory",
+          "card_GB": card / 1e9, "in_use_before_GB": (card - base_free) / 1e9,
+          "peak_in_use_GB": peak[0] / 1e9,
+          "lane_caps_GB": [f * card / 1e9 for f in LANE_FRACTIONS]})
+    counts = {}
+    for name, argv, proc, seconds in results:
+        rec = {"phase": "tools", "step": name, "argv": argv[1:],
+               "rc": proc.returncode, "seconds": seconds,
+               "peak_reserved_GB": _peak_reserved(proc.stderr)}
+        try:
+            rec["last_line"] = json.loads(proc.stdout.strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            rec["stderr"] = proc.stderr[-3000:]
+        emit(rec)
+        if proc.returncode != 0 or "last_line" not in rec:
+            failures.append(rec)
+            continue
+        if argv[0] in ("tools_occupancy_ab", "tools_scan_ab",
+                       "tools_hybrid_bench"):  # the search tools
+            fused = rec["last_line"]["fused_dw"]
+            counts[name] = {s: fused["launches"][str(s)]
+                            + fused["replayed_nodes"][str(s)]
+                            for s in (1, 2)}
+            if not all(counts[name].values()):
+                failures.append(rec)
+    emit({"phase": "tools", "step": "done", "launches_tools": counts,
+          "seconds": time.perf_counter() - t_phase})
+    if failures:
+        raise AssertionError(f"tools phase: {failures}")
+    return counts
+
+
 def _profile_summary(step, path):
     """What the card did inside the profiled step's window (the host range
     'step', which ends after a synchronize): busy share, the fused kernel's
@@ -2337,6 +2607,7 @@ def main():
         par_launches, par_nodes, par_replayed = phase_parallel(
             torch, fused_dw, tmpdir)
         low = phase_lowerings(torch, fused_dw, tmpdir)
+        tools = phase_tools(torch, fused_dw, tss, tmpdir)
     for stride, n in launches.items():
         if n == 0:
             raise AssertionError(f"stride-{stride} kernel never launched on "
@@ -2402,7 +2673,11 @@ def main():
             # under remat, launches per forward of cond_width_split and
             # apply_multi_sampled, nodes of their captured paths
             "launches_lowerings": {path: by.get(stride, 0)
-                                   for path, by in low.items()}})
+                                   for path, by in low.items()},
+            # the tools of phase 12, each run as a subprocess: its eager
+            # launches and replayed nodes
+            "launches_tools": {name: by[stride]
+                               for name, by in tools.items()}})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

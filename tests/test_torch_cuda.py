@@ -14,7 +14,8 @@ boundaries, and the latency chain (cost/measure.py); and the supernet's
 opt-in lowerings: remat_blocks captured against eager and against no
 remat, the soft path's grouped project and k3/k5 depthwise split against
 the CPU, apply_multi_sampled against two sampled forwards, and the kernel
-at the channel counts they give it (4 * ic, 16 * ic).
+at the channel counts they give it (4 * ic, 16 * ic); and the kernel at the
+largest site of each stride at search batches 128 and 256.
 
 Tolerances: f32 with TF32 off, 2e-4 for y (summation order) and 1e-3 for
 the sums; bf16, 2e-2 (one bf16 rounding of y, 2^-8 relative, either way);
@@ -903,3 +904,19 @@ def test_kernel_at_lowering_widths(cuda, stride, dtype, c):
     """The channel counts of cond_width_split's e3 picks (4 * ic: 64-768)
     and of apply_multi_sampled (16 * ic: 256-3072)."""
     _check_forward(_inputs(5, 2, 14, c, cuda, dtype), stride, "swish", dtype)
+
+
+@pytest.mark.parametrize("n", [128, 256])  # the occupancy sweep's batches
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride,h,c", [(1, 56, 1152), (2, 112, 768)])
+def test_kernel_at_large_batches(cuda, stride, h, c, dtype, n):
+    """The largest site of each stride (the soft path at 48 * ic) at search
+    batches 128 and 256: up to 2.5e9 input elements, past 32-bit
+    indexing. Inputs are drawn on the card."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((n, h, h, c), generator=g, device=cuda).to(dtype)
+    wk = torch.randn((5, 5, c), generator=g, device=cuda) * 0.1
+    scale = torch.rand(c, generator=g, device=cuda) + 0.5
+    offset = torch.randn(c, generator=g, device=cuda) * 0.1
+    with torch.no_grad():
+        _check_forward((x, wk, scale, offset), stride, "relu", dtype)

@@ -2,8 +2,9 @@
 transforms (a copy), the on-device normaliser, the C++ pipeline built by
 the port's own runtime/native.py, ImageList's uint8 batches (val, and
 train with the same seed: exact, as the JAX package's uint8 mode), the padded DataLoader, host sharding and the
-prefetcher's CPU path. Images are JPEGs written with PIL into tmp_path,
-plus one PNG for the PIL path."""
+prefetcher's CPU path; the PIL path without the C++ pipeline (forced, and
+where the build fails) and the drivers' decoder line. Images are JPEGs
+written with PIL into tmp_path, plus one PNG for the PIL path."""
 
 import os
 
@@ -110,6 +111,95 @@ def test_imagelist_batches_match_jax(image_list, training):
     np.testing.assert_array_equal(tb[-1][1][3], tb[-1][1][2])
     if not training:  # padding repeats the last valid entry
         np.testing.assert_array_equal(tb[-1][0][3], tb[-1][0][2])
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_imagelist_pil_batches_match_jax(image_list, training):
+    """use_native=False: PIL decode and train_transform_u8 /
+    val_transform_u8 entry by entry, the draws in the JAX package's order
+    (ImageList.get through its DataLoader): the same bytes."""
+    root, lst = image_list
+    jds = jil.ImageList(root, lst, training, image_size=32, use_native=False,
+                        output="uint8")
+    tds = til.ImageList(root, lst, training, image_size=32, use_native=False)
+    assert not jds.use_native and not tds.use_native
+    loaders = [L(ds, 4, shuffle=training, num_workers=2, seed=7,
+                 drop_last=False, pad_last=True)
+               for L, ds in ((jil.DataLoader, jds), (til.DataLoader, tds))]
+    for epoch in (0, 1):
+        for dl in loaders:
+            dl.set_epoch(epoch)
+        jb, tb = list(loaders[0]), list(loaders[1])
+        assert len(tb) == len(jb) == 3
+        for (jx, jy, jn), (tx, ty, tn) in zip(jb, tb):
+            assert tx.dtype == jx.dtype == np.uint8
+            np.testing.assert_array_equal(tx, jx)
+            np.testing.assert_array_equal(ty, jy)
+            assert tn == jn
+
+
+@pytest.fixture
+def failed_build(monkeypatch, tmp_path):
+    """The C++ pipeline as on a machine without a compiler: a fresh build
+    directory, a compiler that is not there, nothing loaded yet."""
+    monkeypatch.setattr(tnative, "GXX", "no-such-compiler")
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "build_error", None)
+
+
+def test_failed_build_decodes_with_pil(image_list, failed_build):
+    root, lst = image_list
+    assert not tnative.available()
+    assert "no-such-compiler" in tnative.build_error
+    with pytest.raises(FileNotFoundError):  # a direct call still raises
+        tnative.build_library()
+    assert til.image_decoder() == (
+        "pil (FileNotFoundError: [Errno 2] No such file or directory: "
+        "'no-such-compiler')")
+    auto = til.ImageList(root, lst, True, image_size=32)
+    assert not auto.use_native
+    pil = til.ImageList(root, lst, True, image_size=32, use_native=False)
+    got = auto.get_batch([0, 4, 2], np.random.default_rng(3))
+    want = pil.get_batch([0, 4, 2], np.random.default_rng(3))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    forced = til.ImageList(root, lst, True, image_size=32, use_native=True)
+    with pytest.raises(RuntimeError, match="no-such-compiler"):
+        forced.get_batch([0], np.random.default_rng(0))
+
+
+def test_failed_compile_names_its_error(failed_build, monkeypatch,
+                                        tmp_path):
+    """A compiler that runs and fails (as g++ does without jpeglib.h): the
+    decoder line carries its first error line."""
+    gxx = tmp_path / "gxx"
+    gxx.write_text("#!/bin/sh\necho 'In file included from x.cpp:' >&2\n"
+                   "echo 'x.cpp:3:10: fatal error: jpeglib.h: No such file "
+                   "or directory' >&2\nexit 1\n")
+    gxx.chmod(0o755)
+    monkeypatch.setattr(tnative, "GXX", str(gxx))
+    assert not tnative.available()
+    assert til.image_decoder() == (
+        f"pil (RuntimeError: {gxx} failed on image_pipeline.cpp: x.cpp:3:10: "
+        "fatal error: jpeglib.h: No such file or directory)")
+
+
+def test_driver_logs_its_decoder(image_list, failed_build, tmp_path):
+    from tfnas_tpu_torch import train_search
+    root, lst = image_list
+    run = train_search.main([
+        "--space", "tiny", "--epochs", "1", "--warmup_epochs", "1",
+        "--steps_per_epoch", "1", "--image_size", "32", "--batch_size", "4",
+        "--num_classes", "10", "--target_lat", "0.05", "--no_bf16",
+        "--workers", "1", "--img_root", root, "--train_list", lst,
+        "--val_list", lst, "--save", str(tmp_path / "s"), "--device",
+        "cpu"])
+    log = open(os.path.join(run, "log.txt")).read()
+    assert log.count("image decode: pil (") == 1
+    line = next(l for l in log.splitlines() if "image decode:" in l)
+    assert line.endswith(f"image decode: {til.image_decoder()}")
+    assert "no-such-compiler" in line
 
 
 def test_imagelist_host_shard_and_drop_last(image_list):

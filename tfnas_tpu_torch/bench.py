@@ -37,8 +37,10 @@ import torch
 from .cost.lut import (build_space_analytic_lut, lat_vectors_for_mc,
                        load_lat_lookup)
 from .device import resolve_device
+from .models import hybrid_space as hs
 from .models import search_space as ss
 from .models.supernet import SuperNetwork
+from .models.supernet_hybrid import HybridSuperNetwork
 from .search.bisample import (gumbel_uniform, sample_gumbel_indices,
                               sample_random_excluding)
 from .search.compiled import GraphFamily
@@ -73,12 +75,19 @@ def _sync(device):
 
 
 def search_setup(device, space=None, batch=32, size=224, ncls=100,
-                 lut_path=os.path.join(ROOT, "latency_pkl",
-                                       "latency_tpu.pkl"), **net_kw):
+                 lut_path=None, hybrid=False, **net_kw):
     """The supernet, its state on `device` and one batch, as bench.py
-    builds them. net_kw: SuperNetwork's lowering flags."""
-    sp = space or ss
-    net = SuperNetwork(ncls, space=space, **net_kw)
+    builds them: the MBConv supernet over `space` (the full space when
+    None) or, with `hybrid`, the hybrid conv/ViT one. lut_path: the
+    latency table (latency_pkl/latency_tpu.pkl, or its hybrid counterpart,
+    by default). net_kw: SuperNetwork's lowering flags."""
+    if hybrid:
+        sp, net = hs, HybridSuperNetwork(ncls, **net_kw)
+    else:
+        sp, net = space or ss, SuperNetwork(ncls, space=space, **net_kw)
+    if lut_path is None:
+        lut_path = os.path.join(ROOT, "latency_pkl", "latency_tpu_hybrid.pkl"
+                                if hybrid else "latency_tpu.pkl")
     gen = torch.Generator(device=device).manual_seed(0)
     params, arch = net.init(gen)
     mc_mask = sp.build_mc_mask_dddict()
@@ -105,6 +114,38 @@ def search_setup(device, space=None, batch=32, size=224, ncls=100,
     return net, state, target, gen
 
 
+def weight_iter(steps, st, gen, valid=None):
+    """One bi-sampling weight step on the state dict `st` (updated in
+    place), its two draws from `gen` over the `valid` candidates; returns
+    its metrics."""
+    la = st["arch"]["log_alphas"]
+    ig = sample_gumbel_indices(la, gen, valid)
+    ir = sample_random_excluding(ig, la.shape[-1], gen, valid)
+    st["params"], st["mom"], m = steps.weight_step(
+        st["params"], st["arch"], st["mom"], st["masks"], st["umasks"],
+        st["x"], st["y"], st["lr"], ig, ir)
+    return m
+
+
+def arch_iter(steps, st, gen):
+    """One soft arch step on `st` (updated in place); returns its
+    metrics."""
+    st["arch"], st["opt"], m = steps.arch_step(
+        st["params"], st["arch"], st["opt"], st["masks"], st["x"], st["y"],
+        st["lat"], st["base"], st["T"],
+        gumbel_uniform(st["arch"]["log_alphas"].shape, gen))
+    return m
+
+
+def search_iter(steps, st, gen, i):
+    """Iteration i of bench.py's schedule: a weight step, then an arch
+    step when i is even; returns the weight step's metrics."""
+    m = weight_iter(steps, st, gen)
+    if i % 2 == 0:
+        arch_iter(steps, st, gen)
+    return m
+
+
 def search_rate(net, state, target, gen, capture, n_timed, warm, deadline,
                 family=None):
     """Weight steps per second over n_timed iterations after `warm`."""
@@ -115,31 +156,16 @@ def search_rate(net, state, target, gen, capture, n_timed, warm, deadline,
     if family is not None:
         st = family.adopt(st)
     device = st["x"].device
-    num_ops = st["arch"]["log_alphas"].shape[-1]
-
-    def one_iter(i):
-        la = st["arch"]["log_alphas"]
-        ig = sample_gumbel_indices(la, gen)
-        ir = sample_random_excluding(ig, num_ops, gen)
-        st["params"], st["mom"], m = steps.weight_step(
-            st["params"], st["arch"], st["mom"], st["masks"], st["umasks"],
-            st["x"], st["y"], st["lr"], ig, ir)
-        if i % 2 == 0:
-            st["arch"], st["opt"], _ = steps.arch_step(
-                st["params"], st["arch"], st["opt"], st["masks"], st["x"],
-                st["y"], st["lat"], st["base"], st["T"],
-                gumbel_uniform(la.shape, gen))
-        return m
 
     t = time.perf_counter()
     for i in range(warm):
-        m = one_iter(i)
+        m = search_iter(steps, st, gen, i)
         deadline.check()
     _sync(device)
     warm_s = time.perf_counter() - t
     t = time.perf_counter()
     for i in range(n_timed):
-        m = one_iter(i)
+        m = search_iter(steps, st, gen, i)
         deadline.check()
     loss = float(m["loss"])  # waits for the last step
     dt = time.perf_counter() - t

@@ -5,9 +5,13 @@ List files are 'relpath label' lines. `ImageList.get_batch` reads a batch's
 files and makes its random draws in Python (the same draws, in the same
 order, as the JAX package's), then decodes and augments the whole batch in
 one call of the C++ pipeline (runtime/native.py); an entry libjpeg cannot
-decode goes through PIL and the same augment. `DataLoader` assembles
-batches in a thread pool, shuffled per epoch, and with `pad_last` yields a
-padded final batch with its valid count for exact validation.
+decode goes through PIL and the same augment. Where the pipeline cannot be
+built (no g++ or no libjpeg header), or with use_native=False, each entry
+is decoded by PIL and augmented by transforms.train_transform_u8 /
+val_transform_u8, as the JAX package's ImageList.get does. `DataLoader`
+assembles batches in a thread pool, shuffled per epoch, and with
+`pad_last` yields a padded final batch with its valid count for exact
+validation.
 `DevicePrefetcher` keeps two batches in flight to the card from pinned host
 buffers.
 """
@@ -24,7 +28,8 @@ import numpy as np
 import torch
 
 from ..runtime import native
-from .transforms import quantize_u8, sample_jitter, sample_rrc_box
+from .transforms import (quantize_u8, sample_jitter, sample_rrc_box,
+                         train_transform_u8, val_transform_u8)
 
 
 def default_list_reader(list_path):
@@ -77,6 +82,15 @@ def jpeg_size(data):
     raise ValueError("no SOF marker found")
 
 
+def image_decoder():
+    """What an ImageList(use_native="auto") decodes with here, as the
+    drivers log it once: 'native' (the C++ pipeline), or 'pil (<why the
+    pipeline is not there: the first line of native.build_error>)'."""
+    if native.available():
+        return "native"
+    return f"pil ({native.build_error.splitlines()[0]})"
+
+
 class ImageList:
     """Map-style dataset over a list file, of augmented uint8 pixels: they
     are normalised on the card by transforms.device_normalizer (4x fewer
@@ -84,11 +98,14 @@ class ImageList:
     does not keep). host_shard=(i, n): this host's share of a list padded
     by wrapping to a multiple of n; its first `num_real` entries are the
     list's own, the rest wrap padding. rrc_scale: RandomResizedCrop's area
-    range."""
+    range. use_native: "auto" decodes with the C++ pipeline where it
+    builds (runtime/native.available()) and with PIL elsewhere; True
+    insists on the pipeline (get_batch raises where it cannot be built);
+    False decodes with PIL."""
 
     def __init__(self, root, list_path, training, image_size=224,
                  list_reader=default_list_reader, loader=pil_loader,
-                 host_shard=None, rrc_scale=(0.08, 1.0)):
+                 host_shard=None, use_native="auto", rrc_scale=(0.08, 1.0)):
         self.root = root
         self.img_list = list_reader(list_path)
         self.num_real = len(self.img_list)
@@ -101,6 +118,8 @@ class ImageList:
         self.training = training
         self.image_size = image_size
         self.loader = loader
+        self.use_native = (native.available() if use_native == "auto"
+                           else bool(use_native))
         self.rrc_scale = tuple(rrc_scale)
 
     def __len__(self):
@@ -110,6 +129,8 @@ class ImageList:
         """(xs [n, S, S, 3] uint8, ys [n] int32) of the entries `indices`,
         with the random draws of training taken from `rng` image by
         image."""
+        if not self.use_native:
+            return self._get_batch_pil(indices, rng)
         n = len(indices)
         ys = np.empty((n,), np.int32)
         datas, boxes, flips, orders, factors = [], [], [], [], []
@@ -149,6 +170,20 @@ class ImageList:
             else:
                 x = native.augment_val(arr, 256, self.image_size)
             xs[j] = quantize_u8(x)
+        return xs, ys
+
+    def _get_batch_pil(self, indices, rng):
+        """get_batch entry by entry through PIL: each image's draws (crop
+        box from the decoded size, flip, jitter) in the JAX package's
+        order (ImageList.get)."""
+        s = self.image_size
+        xs = np.empty((len(indices), s, s, 3), np.uint8)
+        ys = np.empty((len(indices),), np.int32)
+        for j, index in enumerate(indices):
+            img_path, ys[j] = self.img_list[index]
+            img = self.loader(os.path.join(self.root, img_path))
+            xs[j] = (train_transform_u8(img, rng, s, self.rrc_scale)
+                     if self.training else val_transform_u8(img, crop=s))
         return xs, ys
 
 

@@ -76,6 +76,13 @@ def reset_launches():
             counts[stride] = 0
 
 
+def launch_counts():
+    """The counts by stride since the last reset: eager launches, nodes
+    recorded at capture and nodes run by replays."""
+    return {"launches": dict(launches), "captured_nodes": dict(captured),
+            "replayed_nodes": dict(replayed)}
+
+
 def _nvcc():
     found = shutil.which("nvcc")
     if found:

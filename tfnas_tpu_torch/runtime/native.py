@@ -5,10 +5,12 @@ tfnas_tpu/runtime/native.py).
 box resize, flip, colour jitter, quantise to uint8) of a whole batch in one
 call; the random draws stay in Python (data/transforms.py). The library
 is built with g++ at first use into `build/tfnas_tpu_torch/`, once per
-source content, and a failed build raises: there is no fallback to another
-decoder when the compiler or libjpeg is missing. Entries that libjpeg
-cannot decode (non-JPEG or corrupt files) come back with a non-zero status
-for the caller's PIL path.
+source content. `available()` says whether it built and loaded here: it is
+false when g++ or libjpeg's header is missing or the build fails, and
+`build_error` then holds why; data.ImageList decodes with PIL instead.
+`build_library()` called directly raises on a failed build. Entries that
+libjpeg cannot decode (non-JPEG or corrupt files) come back with a non-zero
+status for the caller's PIL path.
 """
 
 from __future__ import annotations
@@ -24,10 +26,13 @@ import numpy as np
 
 _SOURCE = Path(__file__).resolve().parent / "src" / "image_pipeline.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tfnas_tpu_torch"
+GXX = "g++"
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
+# why the library could not be built or loaded, once that was tried
+build_error = None
 # identity normalisation: the pipeline's float entries produce [0, 1] pixels
 _ZERO3 = np.zeros((3,), np.float32)
 _ONE3 = np.ones((3,), np.float32)
@@ -43,22 +48,31 @@ def build_library():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(_SOURCE),
+    proc = subprocess.run([GXX, *GXX_FLAGS, "-o", str(tmp), str(_SOURCE),
                            "-ljpeg"], capture_output=True, text=True,
                           timeout=300)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed on {_SOURCE.name}:\n{proc.stderr}")
+        first = next((l.strip() for l in proc.stderr.splitlines()
+                      if "error" in l), "")
+        raise RuntimeError(
+            f"{GXX} failed on {_SOURCE.name}: {first}\n{proc.stderr}")
     os.replace(tmp, out)
     return out
 
 
 def _load():
-    global _lib
+    global _lib, build_error
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(str(build_library()))
+        if build_error is not None:  # tried once: fail fast
+            raise RuntimeError(build_error)
+        try:
+            lib = ctypes.CDLL(str(build_library()))
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            build_error = f"{type(e).__name__}: {e}"
+            raise
         u8p = ctypes.POINTER(ctypes.c_uint8)
         f32p = ctypes.POINTER(ctypes.c_float)
         i32p = ctypes.POINTER(ctypes.c_int)
@@ -78,6 +92,16 @@ def _load():
             u8pp, szp, i, i, i, u8p, i32p, i]
         _lib = lib
     return _lib
+
+
+def available():
+    """Whether the C++ pipeline is built and loaded here (built at the
+    first call); when false, `build_error` says why."""
+    try:
+        _load()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def _ptr(arr, ctype):

@@ -22,7 +22,8 @@ import os
 import torch
 
 from .convert import eval_state_from_jax
-from .data import DataLoader, ImageList, device_normalizer, synthetic_loader
+from .data import (DataLoader, ImageList, device_normalizer, image_decoder,
+                   synthetic_loader)
 from .device import resolve_device
 from .models.eval_net import EvalNetwork
 from .parallel.mesh import (host_shard, is_main_process, local_device,
@@ -85,6 +86,7 @@ def main(argv=None):
     else:
         ds = ImageList(args.val_root, args.val_list, training=False,
                        image_size=args.image_size, host_shard=host_shard())
+        show('image decode: {}'.format(image_decoder()))
         batches = DataLoader(ds, local_batch(args.batch_size), shuffle=False,
                              num_workers=args.workers, drop_last=False,
                              pad_last=True)

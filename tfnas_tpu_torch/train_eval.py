@@ -38,7 +38,7 @@ import torch
 
 from .convert import eval_state_from_jax, params_to_jax
 from .data import (DataLoader, DevicePrefetcher, ImageList, device_normalizer,
-                   synthetic_loader)
+                   image_decoder, synthetic_loader)
 from .device import resolve_device
 from .models.eval_net import EvalNetwork
 from .parallel.mesh import (host_shard, is_main_process, local_device,
@@ -193,6 +193,8 @@ def main(argv=None):
         setup_rank_logging(rank)
     logging.info("args = %s", args)
     logging.info("device: %s, rank %d of %d", device, rank, world)
+    if not args.synthetic:
+        logging.info("image decode: %s", image_decoder())
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     train_step, val_step = make_eval_steps(

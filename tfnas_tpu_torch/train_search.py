@@ -45,7 +45,7 @@ from .convert import arch_from_jax, params_from_jax, params_to_jax
 from .cost.lut import (build_space_analytic_lut, lat_vectors_for_mc,
                        load_lat_lookup)
 from .data import (DataLoader, DevicePrefetcher, ImageList, device_normalizer,
-                   synthetic_loader)
+                   image_decoder, synthetic_loader)
 from .device import resolve_device
 from .models import hybrid_space as hs
 from .models import search_space as ss
@@ -486,6 +486,8 @@ def main(argv=None):
     run_dir = setup_experiment(args.save, 'search', args.note)
     logging.info("args = %s", args)
     logging.info("device: %s", device)
+    if not args.synthetic:
+        logging.info("image decode: %s", image_decoder())
     mc_maxnum_dddict = get_mc_num_dddict(mc_mask_dddict, is_max=True)
     lv = lat_vectors_for_mc(lat_lookup, mc_maxnum_dddict, key_dddict,
                             space.NUM_OPS)

@@ -45,7 +45,7 @@ import torch.distributed as dist
 from .convert import params_to_jax
 from .cost.lut import lat_vectors_for_mc
 from .data import (DataLoader, DevicePrefetcher, ImageList, device_normalizer,
-                   synthetic_loader)
+                   image_decoder, synthetic_loader)
 from .device import resolve_device
 from .models.supernet import SuperNetwork
 from .models.supernet_hybrid import HybridSuperNetwork
@@ -165,6 +165,8 @@ def main(argv=None):
         dist.broadcast_object_list(run_dir, src=0)
     run_dir = run_dir[0]
     logging.info("args = %s", args)
+    if not args.synthetic:
+        logging.info("image decode: %s", image_decoder())
     logging.info("rank %d of %d on %s: groups %s of %d, %d data ranks "
                  "each; targets %s", rank, world, device, mesh.local_groups,
                  G, mesh.data_size, targets)
