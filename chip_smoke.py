@@ -6,10 +6,13 @@
 Phases, each printing one JSON line as soon as it ends:
 
 1. env: the card (nvidia-smi name and power limit), torch and CUDA
-   versions, the nvcc build of the kernel library (sm_90a), and what the
-   host offers the port: g++ and libjpeg's header (`gxx`, `jpeglib_h`: the
-   C++ image pipeline), and whether PIL and triton import (`pil`,
-   `triton`: each one's version, or false).
+   versions, the nvcc builds (sm_90a) of the two libraries, one nvcc each,
+   started together: the fused depthwise kernel and the card image
+   pipeline (nvJPEG decode and the augment kernel); nvJPEG's version and
+   whether its hardware backend opens; and what the host offers the port:
+   g++ and libjpeg's header (`gxx`, `jpeglib_h`: the C++ image pipeline),
+   and whether PIL and triton import (`pil`, `triton`: each one's
+   version, or false).
 2. kernel: the hand-written fused depthwise kernel against its plain
    PyTorch version at every (H, C, stride, act) of the search's soft and
    sampled sites at batch 32, and at ragged edge shapes (N 1 and 3, H and
@@ -130,10 +133,17 @@ Phases, each printing one JSON line as soon as it ends:
    batches 128 and 256, the occupancy sweep's, at the largest site of
    each stride (up to 2.5e9 input elements), f32 with TF32 off and bf16;
    a proxy set of real JPEGs (dataset/make_proxy_dataset.py: 8 classes,
-   24 train and 8 val images each) searched by `train_search` from CUDA
-   graphs (one warmup and one search epoch of 4 batches, full width),
-   whose log must name its decoder once (`image decode: pil (<why>)` where
-   the C++ pipeline cannot be built) and whose replays must hold both strides;
+   24 train and 8 val images each, 256-352 px); the card image pipeline on
+   it (`phase_decode`, decode lines): nvJPEG's pixels against PIL's (mean
+   and max |diff| per image of a batch of 32), the augment kernel against
+   its plain version on that batch, train with the driver's draws and val,
+   at 224^2 (uint8 within one level, the unequal share; ms, device ms,
+   plain ms, bound), and the loader's images/s on the card pipeline at
+   batch 32 and 256 beside PIL's at 32; then the set searched by
+   `train_search` from CUDA graphs (one warmup and one search epoch of 4
+   batches, full width), decoded and augmented on the card, whose log
+   must name its decoder once (`image decode: nvjpeg (...)`), which must
+   launch the augment kernel, and whose replays must hold both strides;
    then the root tools as a user runs them (`python -m`), subprocesses in
    two lanes at once, each cut to fit: `tools_occupancy_ab --batches 32,64
    --n_timed 4 --warm 2`, `tools_hybrid_bench --iters 3` and
@@ -150,8 +160,9 @@ Phases, each printing one JSON line as soon as it ends:
    nodes, from its last line).
 
 The line before the last holds the kernels' summary, with each path's
-launches (`launches_tools`: the phase 12 search tools', by stride); the
-last line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
+launches (`launches_tools`: the phase 12 search tools', by stride) and
+the augment kernel's launches in the real-JPEG search; the last line is
+{"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
 does a run without a card, a run without the package beside this file, and
 a run past the 10-minute deadline.
 """
@@ -196,15 +207,22 @@ def _deadline(signum, frame):
 
 # -- phase 1 ------------------------------------------------------------------
 
-def phase_env(torch, fused_dw):
+def phase_env(torch, fused_dw, card):
+    import concurrent.futures as cf
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    fused_dw.build_library()
+    with cf.ThreadPoolExecutor(2) as pool:  # one nvcc per source, at once
+        builds = [pool.submit(lib.build_library) for lib in (fused_dw, card)]
+        for b in builds:
+            b.result()
     wall = time.perf_counter() - t0
+    built = {"fused_dw": dict(fused_dw.build_info),
+             "image_decode": dict(card.build_info)}
+    nvjpeg = card.open_pipeline("cuda")
     # the C++ image pipeline (runtime/native.py) needs g++ and libjpeg's
     # header; the smoke does not use it, it records whether they are here
     probe = subprocess.run(["g++", "-fsyntax-only", "-x", "c++", "-"],
@@ -222,8 +240,14 @@ def phase_env(torch, fused_dw):
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0],
           "kernel_build_s": round(wall, 3),
+          "build_s": {k: v["seconds"] for k, v in built.items()},
           "nvcc_flags": " ".join(fused_dw.NVCC_FLAGS),
-          "ptxas": fused_dw.build_info["log"][-800:],
+          "ptxas": built["fused_dw"]["log"][-800:],
+          "ptxas_image_decode": built["image_decode"]["log"][-800:],
+          "nvjpeg": nvjpeg["nvjpeg"], "nvjpeg_library": nvjpeg["library"],
+          "nvjpeg_hardware_backend": nvjpeg["hardware"],
+          "nvjpeg_hardware_status": nvjpeg["hardware_status"],
+          "nvjpeg_flags": nvjpeg["flags"],
           "gxx": shutil.which("g++"),
           "jpeglib_h": probe is not None and probe.returncode == 0,
           "pil": versions["PIL"], "triton": versions["triton"]})
@@ -2362,7 +2386,179 @@ def _peak_reserved(stderr):
         return None
 
 
-def phase_tools(torch, fused_dw, tss, tmpdir):
+# per output pixel, the f32 operations of the augment (csrc/image_decode.cu),
+# counted from its source: the bilinear sample (coordinates, clamps, two
+# lerps and a scale per channel), each jitter op by id (contrast with its
+# gray sum), the clip and the quantiser
+AUG_OPS = {"sample": 40, 0: 3, 1: 15, 2: 14, 3: 30, "clip": 6,
+           "quantize": 12}
+# timed batches after one: each loader thread decodes a whole batch and
+# they start together, so a short run counts their head start
+LOADER_BATCHES = {32: 40, 256: 12}
+PIL_BATCHES = 8                   # at BATCH
+LIST_REPEATS = 18                 # the proxy list, repeated to fill them
+
+
+def _augment_bound(card, images, size, boxes=None, orders=None):
+    """Least time for the augment of this batch: the source pixels it must
+    read (each train crop box, or the region the val crop samples) and the
+    uint8 output, over the memory rate; AUG_OPS per output pixel over the
+    f32 rate. Returns (ms, 'bytes' or 'operations')."""
+    nbytes = len(images) * (size * size * 3 + card.IMAGE_ARGS.itemsize)
+    ops = 0
+    for i, img in enumerate(images):
+        h, w = img.shape[:2]
+        if boxes is None:
+            nw, nh, _, _ = card.val_geometry(w, h, size)
+            nbytes += 3 * min(w, math.ceil(size * w / nw)) * min(
+                h, math.ceil(size * h / nh))
+            per = AUG_OPS["sample"] + AUG_OPS["quantize"]
+        else:
+            nbytes += 3 * boxes[i][2] * boxes[i][3]
+            per = (AUG_OPS["sample"] + AUG_OPS["clip"] + AUG_OPS["quantize"]
+                   + sum(AUG_OPS[op] for op in orders[i]))
+        ops += per * size * size
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
+SPIN_S = 0.2  # the spin kernel that holds the stream while calls are queued
+
+
+def _queued_ms(torch, fn, calls=5):
+    """Device ms per call of fn's work on the current stream (for the
+    augment: its 3 KB argument copy and its two kernels), from CUDA events
+    around `calls` calls queued behind a SPIN_S spin kernel, so that they
+    run back to back whatever the host's time per call. The torch.profiler
+    recorded none of this library's kernels late in the smoke's process,
+    though it did alone, so the smoke times them with events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SPIN_S * 1.98e9))  # cycles at the boost clock
+    t = time.perf_counter()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    if host_s > 0.5 * SPIN_S:
+        raise AssertionError(f"queueing {calls} calls took {host_s:.3f} s "
+                             f"of the {SPIN_S} s spin")
+    return start.elapsed_time(end) / calls
+
+
+def phase_decode(torch, card, proxy, tmpdir, n=BATCH):
+    """The card pipeline on the proxy set (256-352 px JPEGs): nvJPEG's
+    decode of a batch of `n` against PIL's (mean and max |diff| per
+    image, and each entry's backend); the augment kernel against its plain
+    version on that batch, train (the driver's draws) and val at 224^2
+    (uint8 within one level, the unequal share), with its ms, device ms,
+    plain ms and bound (device ms from CUDA events, `_queued_ms`); then
+    the loader's images/s on the card pipeline at
+    batch 32 and 256 (the list repeated LIST_REPEATS times, from the page
+    cache) beside PIL's at 32 (4 threads each). Returns the kernel's record
+    for the summary line."""
+    import io
+    import numpy as np
+    from PIL import Image
+    from tfnas_tpu_torch.data import ImageList
+    from tfnas_tpu_torch.data.transforms import sample_jitter, sample_rrc_box
+    from tfnas_tpu_torch.tools_loader_throughput import measure
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    lst = os.path.join(proxy, "proxy_train.txt")
+    with open(lst) as f:
+        entries = [l.split()[0] for l in f if l.strip()]
+    datas = []
+    for rel in entries[:n]:
+        with open(os.path.join(proxy, rel), "rb") as f:
+            datas.append(f.read())
+    images, backends = card.decode_batch(datas, dev)
+    gaps = []
+    for data, img in zip(datas, images):
+        ref = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        d = np.abs(img.cpu().numpy().astype(np.int16) - ref)
+        gaps.append((float(d.mean()), int(d.max())))
+    emit({"phase": "decode", "step": "nvjpeg_vs_pil", "images": len(gaps),
+          "backends": dict(collections.Counter(backends)),
+          "mean_abs_per_image": [g[0] for g in gaps],
+          "max_abs_per_image": [g[1] for g in gaps],
+          "mean_abs": sum(g[0] for g in gaps) / len(gaps),
+          "max_abs": max(g[1] for g in gaps)})
+    failures = []
+    if "refused" in backends:
+        failures.append("nvJPEG refused a proxy JPEG")
+
+    rng = np.random.default_rng(0)
+    boxes, flips, orders, factors = [], [], [], []
+    for img in images:
+        h, w = img.shape[:2]
+        boxes.append(sample_rrc_box(w, h, rng))
+        flips.append(rng.random() < 0.5)
+        order, facs = sample_jitter(rng)
+        orders.append(order)
+        factors.append(facs)
+    size = 224
+    rec = {"phase": "decode", "step": "augment_kernel", "n": len(images),
+           "size": size}
+    for mode in ("train", "val"):
+        if mode == "train":
+            def kernel():
+                return card.augment_train(images, boxes, size, flips,
+                                          orders, factors)
+
+            def plain():
+                return torch.stack([card.quantize_plain(
+                    card.augment_train_plain(img, boxes[i], size, flips[i],
+                                             orders[i], factors[i]))
+                    for i, img in enumerate(images)])
+            bound = _augment_bound(card, images, size, boxes, orders)
+        else:
+            def kernel():
+                return card.augment_val(images, size)
+
+            def plain():
+                return torch.stack([card.quantize_plain(
+                    card.augment_val_plain(img, size)) for img in images])
+            bound = _augment_bound(card, images, size)
+        got, want = kernel(), plain()
+        d = (got.int() - want.int()).abs()
+        err, share = int(d.max()), float((d > 0).float().mean())
+        same = torch.equal(kernel(), got)
+        rec[mode] = {"max_abs_err": err, "unequal_share": share,
+                     "bit_identical_rerun": same,
+                     "ms": _timed(torch, kernel),
+                     "device_ms": _queued_ms(torch, kernel),
+                     "plain_ms": _timed(torch, plain, reps=2),
+                     "bound_ms": bound[0], "bound_by": bound[1]}
+        if err > 1 or share > 1e-3 or not same:
+            failures.append(rec)
+    emit(rec)
+
+    rates = {}
+    rep = os.path.join(tmpdir, "proxy_train_repeated.txt")
+    with open(lst) as f, open(rep, "w") as g:
+        g.write(f.read() * LIST_REPEATS)
+    for name, path, use_native, bs, n in (
+            ("card_32", rep, "auto", BATCH, LOADER_BATCHES[BATCH]),
+            ("card_256", rep, "auto", EVAL_BATCH, LOADER_BATCHES[EVAL_BATCH]),
+            ("pil_32", rep, False, BATCH, PIL_BATCHES)):
+        ds = ImageList(proxy, path, training=True, image_size=size,
+                       use_native=use_native, device=dev)
+        rates[name] = {"images_per_sec": measure(ds, bs, 4, n, dev),
+                       "decoded": dict(ds.decoded), "batches": n}
+    emit({"phase": "decode", "step": "loader", "rates": rates,
+          "seconds": time.perf_counter() - t_phase})
+    if failures:
+        raise AssertionError(f"decode phase: {failures}")
+    return rec
+
+
+def phase_tools(torch, fused_dw, card, tss, tmpdir):
     """Data and tools: the kernel against its plain version at the
     occupancy sweep's batches (128, 256) at the largest site of each
     stride, f32 (TF32 off) and bf16; a small proxy set of real JPEGs
@@ -2415,10 +2611,12 @@ def phase_tools(torch, fused_dw, tss, tmpdir):
             gen_proxy.wait()
     if gen_proxy.returncode != 0:
         raise AssertionError(f"make_proxy_dataset failed: {err[-2000:]}")
+    augment = phase_decode(torch, card, proxy, tmpdir)
 
-    # the real-JPEG search, replayed from graphs
+    # the real-JPEG search, replayed from graphs, decoded on the card
     lut = os.path.join(here, "latency_pkl", "latency_h100.pkl")
     fused_dw.reset_launches()
+    card.reset_launches()
     t = time.perf_counter()
     run = train_search.main([
         "--img_root", proxy, "--train_list",
@@ -2428,7 +2626,8 @@ def phase_tools(torch, fused_dw, tss, tmpdir):
         str(BATCH), "--num_classes", "8", "--lookup_path", lut,
         "--target_lat", "5.0", "--save_freq", "100", "--save",
         os.path.join(tmpdir, "jpeg_search")])
-    decoder = image_decoder()
+    augment["launches"] = card.launches["augment"]
+    decoder = image_decoder("cuda")
     with open(os.path.join(run, "log.txt")) as f:
         lines = [l for l in f if "image decode:" in l]
     rec = {"phase": "tools", "step": "jpeg_search", "seconds":
@@ -2436,10 +2635,12 @@ def phase_tools(torch, fused_dw, tss, tmpdir):
            "decode_lines": [l[l.index("image decode:"):].strip()
                             for l in lines],
            "replayed": dict(fused_dw.replayed),
-           "launches": dict(fused_dw.launches)}
+           "launches": dict(fused_dw.launches),
+           "augment_launches": augment["launches"]}
     emit(rec)
-    if not (len(lines) == 1 and lines[0].rstrip().endswith(
-            f"image decode: {decoder}") and all(rec["replayed"].values())):
+    if not (len(lines) == 1 and decoder.startswith("nvjpeg (")
+            and lines[0].rstrip().endswith(f"image decode: {decoder}")
+            and all(rec["replayed"].values()) and augment["launches"]):
         failures.append(rec)
     shutil.rmtree(run)
     _release(torch)
@@ -2513,7 +2714,7 @@ def phase_tools(torch, fused_dw, tss, tmpdir):
           "seconds": time.perf_counter() - t_phase})
     if failures:
         raise AssertionError(f"tools phase: {failures}")
-    return counts
+    return counts, augment
 
 
 def _profile_summary(step, path):
@@ -2586,9 +2787,10 @@ def main():
         return 1
     from tfnas_tpu_torch.kernels import fused_dw
     from tfnas_tpu_torch.models import search_space as tss
+    from tfnas_tpu_torch.runtime import card
 
     t_start = time.perf_counter()
-    phase_env(torch, fused_dw)
+    phase_env(torch, fused_dw, card)
     per_stride, times = phase_kernel(torch, fused_dw, tss)
     with tempfile.TemporaryDirectory() as tmpdir:
         launches, searched = phase_search(torch, fused_dw, tmpdir)
@@ -2607,7 +2809,7 @@ def main():
         par_launches, par_nodes, par_replayed = phase_parallel(
             torch, fused_dw, tmpdir)
         low = phase_lowerings(torch, fused_dw, tmpdir)
-        tools = phase_tools(torch, fused_dw, tss, tmpdir)
+        tools, augment = phase_tools(torch, fused_dw, card, tss, tmpdir)
     for stride, n in launches.items():
         if n == 0:
             raise AssertionError(f"stride-{stride} kernel never launched on "
@@ -2678,6 +2880,24 @@ def main():
             # launches and replayed nodes
             "launches_tools": {name: by[stride]
                                for name, by in tools.items()}})
+    if not augment["launches"]:
+        raise AssertionError("the augment kernel never launched on the "
+                             "real-JPEG search")
+    train, val = augment["train"], augment["val"]
+    kernels.append({
+        "name": "augment (train crop box, flip, jitter, quantise)",
+        "route": "cuda", "source": "tfnas_tpu_torch/csrc/image_decode.cu",
+        "replaces": "tfnas_tpu/runtime/src/image_pipeline.cpp:112-210, "
+                    ":399-405 (host C++; no TPU kernel)",
+        "launches": augment["launches"],
+        "max_abs_err": max(train["max_abs_err"], val["max_abs_err"]),
+        "unequal_share": train["unequal_share"],
+        "shape": [augment["n"], augment["size"], augment["size"], 3],
+        "ms": train["ms"], "device_ms": train["device_ms"],
+        "plain_ms": train["plain_ms"], "bound_ms": train["bound_ms"],
+        "bound_by": train["bound_by"], "library_ms": None,
+        # the val transform (short side 256, centre crop), the same kernel
+        "val": val})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -15,10 +15,15 @@ opt-in lowerings: remat_blocks captured against eager and against no
 remat, the soft path's grouped project and k3/k5 depthwise split against
 the CPU, apply_multi_sampled against two sampled forwards, and the kernel
 at the channel counts they give it (4 * ic, 16 * ic); and the kernel at the
-largest site of each stride at search batches 128 and 256.
+largest site of each stride at search batches 128 and 256. And the card
+image pipeline (runtime/card.py): the augment kernel against its plain
+version, nvJPEG against PIL, the entries nvJPEG refuses, ImageList on the
+card, and a card list whose library does not build.
 
 Tolerances: f32 with TF32 off, 2e-4 for y (summation order) and 1e-3 for
 the sums; bf16, 2e-2 (one bf16 rounding of y, 2^-8 relative, either way);
+the augment kernel within one uint8 level of its plain version on at most
+0.1% of the values; nvJPEG within 2 levels of PIL on average per file;
 the search steps and the eval forward on the card against the CPU 1e-4,
 one eval train step and the folds 1e-5; captured against eager steps bit
 for bit (cuDNN deterministic), else 1e-5.
@@ -920,3 +925,196 @@ def test_kernel_at_large_batches(cuda, stride, h, c, dtype, n):
     offset = torch.randn(c, generator=g, device=cuda) * 0.1
     with torch.no_grad():
         _check_forward((x, wk, scale, offset), stride, "relu", dtype)
+
+
+# -- the card image pipeline (runtime/card.py) ---------------------------------
+
+def _card_jpeg(w, h, seed, **save):
+    """PIL's JPEG of a smooth random image (PIL's default: baseline 4:2:0,
+    quality 75)."""
+    import io
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    small = rng.integers(0, 256, (max(2, h // 6), max(2, w // 6), 3),
+                         np.uint8)
+    img = Image.fromarray(small).resize((w, h), Image.BILINEAR)
+    if save.pop("gray", False):
+        img = img.convert("L")
+    buf = io.BytesIO()
+    img.save(buf, format="JPEG", **save)
+    return buf.getvalue()
+
+
+def _unequal(got, want):
+    """(max |diff| in levels, share of unequal values) of two uint8
+    tensors."""
+    d = (got.int() - want.int()).abs()
+    return d.max().item(), (d > 0).float().mean().item()
+
+
+_AUG_SHAPES = [(1, 1), (2, 3), (7, 5), (31, 17), (97, 45), (333, 211),
+               (501, 389)]
+
+
+@pytest.mark.parametrize("order", [[], [0], [1], [2], [3], [1, 3],
+                                   [3, 2, 1, 0], [2, 0, 3, 1], [0, 1, 2, 3],
+                                   [3, 1, 0, 2]])
+def test_augment_kernel_matches_plain(cuda, order):
+    """The augment kernel against its plain version on the card: source
+    images from 1 x 1 to 501 x 389 (odd widths), interleaved and planar
+    (the decode buffer's layouts), both flips, crop boxes from one pixel to
+    the whole image, at 224 and 37; uint8 within one level on at most 0.1%
+    of the values (the plain contrast mean sums in another order)."""
+    import numpy as np
+    from tfnas_tpu_torch.data.transforms import sample_rrc_box, sample_jitter
+    from tfnas_tpu_torch.runtime import card
+    rng = np.random.default_rng(len(order) * 10 + sum(order))
+    images, boxes, flips, factors = [], [], [], []
+    for i, (w, h) in enumerate(_AUG_SHAPES):
+        pix = torch.from_numpy(rng.integers(0, 256, (h, w, 3), np.uint8))
+        if i % 2:  # planar, as the hardware backend may write
+            pix = pix.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+        images.append(pix.to(cuda))
+        boxes.append(sample_rrc_box(w, h, rng) if i % 3 else (0, 0, w, h))
+        flips.append(bool(i % 2))
+        factors.append(sample_jitter(rng)[1])
+    orders = [order] * len(images)
+    for size in (224, 37):
+        before = card.launches["augment"]
+        got = card.augment_train(images, boxes, size, flips, orders, factors)
+        torch.cuda.synchronize()
+        assert card.launches["augment"] == before + 1
+        for i, img in enumerate(images):
+            want = card.quantize_plain(card.augment_train_plain(
+                img, boxes[i], size, flips[i], order, factors[i]))
+            err, share = _unequal(got[i], want)
+            assert err <= 1 and share <= 1e-3, (i, err, share)
+        val = card.augment_val(images, size)
+        for i, img in enumerate(images):
+            want = card.quantize_plain(card.augment_val_plain(img, size))
+            assert _unequal(val[i], want)[0] == 0
+        again = card.augment_train(images, boxes, size, flips, orders,
+                                   factors)
+        assert torch.equal(again, got)  # the contrast mean: fixed order
+
+
+def test_nvjpeg_against_pil(cuda, capsys):
+    """nvJPEG's pixels against PIL's (libjpeg) on JPEGs written by PIL:
+    baseline 4:2:0 and 4:4:4 and grayscale, through the hardware backend
+    where it takes them, and progressive through the default backend. The
+    decoders' IDCT and chroma upsampling differ, so pixels differ by a few
+    levels at edges; the gap per file is printed."""
+    import io
+    import numpy as np
+    from PIL import Image
+    from tfnas_tpu_torch.runtime import card
+    files = {"420": _card_jpeg(203, 157, 1),
+             "444": _card_jpeg(160, 99, 2, subsampling=0, quality=90),
+             "gray": _card_jpeg(91, 120, 3, gray=True),
+             "progressive": _card_jpeg(250, 171, 4, progressive=True)}
+    images, backends = card.decode_batch(list(files.values()), cuda)
+    hardware = card.info["hardware"]
+    gaps = {}
+    for (name, data), img, backend in zip(files.items(), images, backends):
+        ref = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        assert img is not None and tuple(img.shape) == ref.shape, name
+        d = np.abs(img.cpu().numpy().astype(int) - ref.astype(int))
+        gaps[name] = (d.mean(), d.max())
+        print(f"nvjpeg vs pil {name}: {backend}, mean {d.mean():.3f} max "
+              f"{d.max()}", flush=True)
+        if name == "progressive" or not hardware:
+            assert backend == "default", name
+        elif name != "gray":
+            assert backend == "hardware", name
+    assert all(mean <= 2.0 for mean, _ in gaps.values()), gaps
+
+
+def test_nvjpeg_refuses_what_it_cannot_decode(cuda):
+    """A PNG and a truncated JPEG take the status path; the good entry
+    beside them decodes."""
+    import io
+    import numpy as np
+    from PIL import Image
+    from tfnas_tpu_torch.runtime import card
+    good = _card_jpeg(64, 48, 5)
+    png = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(png, format="PNG")
+    images, backends = card.decode_batch(
+        [png.getvalue(), good[:len(good) // 2], good, b"\xff\xd8"], cuda)
+    assert backends[0] == backends[1] == backends[3] == "refused"
+    assert images[0] is None and images[1] is None
+    assert backends[2] in ("hardware", "default")
+    assert tuple(images[2].shape) == (48, 64, 3)
+
+
+def _card_list(root):
+    """Eight entries: baseline JPEGs, a progressive one and a PNG."""
+    import numpy as np
+    from PIL import Image
+    lines = []
+    for i in range(8):
+        w, h = 60 + 7 * i, 80 - 3 * i
+        if i == 5:
+            Image.fromarray(np.full((h, w, 3), 40 * i, np.uint8)).save(
+                root / f"{i}.png")
+            lines.append(f"{i}.png {i % 3}")
+            continue
+        (root / f"{i}.jpg").write_bytes(
+            _card_jpeg(w, h, i, progressive=i == 2))
+        lines.append(f"{i}.jpg {i % 3}")
+    (root / "list.txt").write_text("\n".join(lines) + "\n")
+    return str(root), str(root / "list.txt")
+
+
+def test_imagelist_on_card(cuda, tmp_path):
+    """ImageList for the card decodes on it: card uint8 batches, the PNG
+    through PIL and the same kernel (counted), the progressive file through
+    the default backend; the DataLoader and the prefetcher carry the card
+    batches; a val batch of the PNG equals the plain val transform of its
+    pixels."""
+    import numpy as np
+    from tfnas_tpu_torch.data import (DataLoader, DevicePrefetcher,
+                                      ImageList, image_decoder)
+    from tfnas_tpu_torch.runtime import card
+    root, lst = _card_list(tmp_path)
+    assert card.available() and card.build_error is None
+    assert image_decoder(cuda).startswith("nvjpeg (")
+    train = ImageList(root, lst, True, image_size=32, device=cuda)
+    assert train.decoder == "card"
+    x, y = train.get_batch(list(range(8)), np.random.default_rng(0))
+    assert x.is_cuda and x.dtype == torch.uint8 and x.shape == (8, 32, 32, 3)
+    assert y.tolist() == [i % 3 for i in range(8)]
+    assert train.decoded["pil"] == 1 and sum(train.decoded.values()) == 8
+    assert train.decoded["default"] >= 1
+    val = ImageList(root, lst, False, image_size=32, device=cuda)
+    xv, _ = val.get_batch([5, 0], None)
+    png = torch.full((80 - 15, 60 + 35, 3), 200, dtype=torch.uint8)
+    want = card.quantize_plain(card.augment_val_plain(png, 32))
+    assert torch.equal(xv[0].cpu(), want)
+    dl = DataLoader(train, 4, shuffle=True, num_workers=2, seed=1)
+    out = list(DevicePrefetcher(dl, cuda))
+    assert len(out) == 2
+    for xb, yb in out:
+        assert xb.is_cuda and yb.is_cuda and yb.dtype == torch.int64
+        assert xb.shape == (4, 32, 32, 3)
+
+
+def test_imagelist_on_card_raises_when_the_library_fails(cuda, tmp_path,
+                                                         monkeypatch):
+    """No silent PIL on the card: a card pipeline that does not build
+    (a broken source) raises when the list is made, with nvcc's error."""
+    from tfnas_tpu_torch.data import ImageList
+    from tfnas_tpu_torch.runtime import card
+    root, lst = _card_list(tmp_path)
+    broken = tmp_path / "image_decode.cu"
+    broken.write_text("this is not CUDA\n")
+    monkeypatch.setattr(card, "_SOURCE", broken)
+    monkeypatch.setattr(card, "_lib", None)
+    monkeypatch.setattr(card, "build_error", None)
+    monkeypatch.setattr(card, "info", None)
+    with pytest.raises(RuntimeError, match="nvcc failed on image_decode.cu"):
+        ImageList(root, lst, True, image_size=32, device=cuda)
+    assert "nvcc failed" in card.build_error
+    with pytest.raises(RuntimeError, match="nvcc failed"):  # fails fast
+        ImageList(root, lst, False, image_size=32, device=cuda)

@@ -91,7 +91,7 @@ def test_search_report_matches_jax(run_dir, space, tmp_path, capsys,
                                    shapes_only_init):
     out = tmp_path / "report.json"
     tools_search_report.main(["--run_dir", run_dir, "--space", space,
-                              "--json_out", str(out)])
+                              "--json_out", str(out), "--device", "cpu"])
     text = capsys.readouterr().out
     got = json.loads(out.read_text())
     # the JAX tool's report (its --json_out dies unpacking 5-tuples into
@@ -135,18 +135,19 @@ def _run_jax_tool(module, argv, capsys):
 
 def test_family_table_matches_jax(capsys, shapes_only_init):
     argv = ["--root", os.path.relpath(E2E, os.getcwd()), "--json"]
-    got = tools_family_table.main(argv)
+    cpu = ["--device", "cpu"]
+    got = tools_family_table.main(argv + cpu)
     capsys.readouterr()
     want = json.loads(_run_jax_tool(jft, argv, capsys).strip())
     assert len(want) >= 9
     _close(json.loads(json.dumps(got)), want)
     # one table for every run (the hybrid runs: its _hybrid sibling)
     tpu = os.path.join(REPO, "latency_pkl", "latency_tpu_v5e_bs32.pkl")
-    rows = tools_family_table.main(argv + ["--lookup_path", tpu])
+    rows = tools_family_table.main(argv + cpu + ["--lookup_path", tpu])
     capsys.readouterr()
     _close(rows, json.loads(json.dumps(got)))  # what the runs searched on
     h100 = os.path.join(REPO, "latency_pkl", "latency_h100.pkl")
-    rows = tools_family_table.main(argv + ["--lookup_path", h100])
+    rows = tools_family_table.main(argv + cpu + ["--lookup_path", h100])
     capsys.readouterr()
     assert all(r["lut_lat_ms"] > 10 * w["lut_lat_ms"]
                for r, w in zip(rows, want))
@@ -157,7 +158,8 @@ def test_family_table_band_and_markdown(capsys):
     assert tools_family_table.band_bounds(lut) == jft.band_bounds(lut)
     lines = _run_jax_tool(jft, ["--root", "no-runs-here", "--band", lut],
                           capsys)
-    tools_family_table.main(["--root", "no-runs-here", "--band", lut])
+    tools_family_table.main(["--root", "no-runs-here", "--band", lut,
+                             "--device", "cpu"])
     assert capsys.readouterr().out == lines
 
 
@@ -324,3 +326,15 @@ def test_loader_tool(tmp_path, capsys):
     assert out["loader_vs_demand"] == pytest.approx(
         out["value"] / out["chip_demand_images_per_sec"])
     assert out["chip_demand_images_per_sec"] == 20.0
+
+
+@pytest.mark.parametrize("tool, argv", [
+    (tools_family_table, ["--root", "no-runs-here"]),
+    (tools_search_report, ["--run_dir", BOOST]),
+    (tools_loader_throughput, ["--img_root", ".", "--list", "none.txt"])])
+def test_tools_run_on_the_card_unless_told(tool, argv, monkeypatch):
+    """Without --device these tools resolve the card, as every entry point
+    of the port does: here, without one, they raise before any work."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tool.main(argv)

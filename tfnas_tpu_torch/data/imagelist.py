@@ -4,16 +4,19 @@
 List files are 'relpath label' lines. `ImageList.get_batch` reads a batch's
 files and makes its random draws in Python (the same draws, in the same
 order, as the JAX package's), then decodes and augments the whole batch in
-one call of the C++ pipeline (runtime/native.py); an entry libjpeg cannot
-decode goes through PIL and the same augment. Where the pipeline cannot be
-built (no g++ or no libjpeg header), or with use_native=False, each entry
-is decoded by PIL and augmented by transforms.train_transform_u8 /
-val_transform_u8, as the JAX package's ImageList.get does. `DataLoader`
-assembles batches in a thread pool, shuffled per epoch, and with
-`pad_last` yields a padded final batch with its valid count for exact
-validation.
+one go. The decoder follows the device the list feeds: for a CUDA device,
+nvJPEG and the hand-written augment kernel on the card
+(runtime/card.py), which returns the batch as a card tensor; elsewhere the
+C++ pipeline (runtime/native.py) where it builds. Either way an entry the
+decoder refuses goes through PIL and the same augment. Off the card, where
+the pipeline cannot be built (no g++ or no libjpeg header), or with
+use_native=False, each entry is decoded by PIL and augmented by
+transforms.train_transform_u8 / val_transform_u8, as the JAX package's
+ImageList.get does. `DataLoader` assembles batches in a thread pool,
+shuffled per epoch, and with `pad_last` yields a padded final batch with
+its valid count for exact validation.
 `DevicePrefetcher` keeps two batches in flight to the card from pinned host
-buffers.
+buffers; card batches pass through it.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import threading
 import numpy as np
 import torch
 
-from ..runtime import native
+from ..runtime import card, native
 from .transforms import (quantize_u8, sample_jitter, sample_rrc_box,
                          train_transform_u8, val_transform_u8)
 
@@ -82,10 +85,15 @@ def jpeg_size(data):
     raise ValueError("no SOF marker found")
 
 
-def image_decoder():
-    """What an ImageList(use_native="auto") decodes with here, as the
-    drivers log it once: 'native' (the C++ pipeline), or 'pil (<why the
-    pipeline is not there: the first line of native.build_error>)'."""
+def image_decoder(device=None):
+    """What an ImageList(use_native="auto") for `device` decodes with, as
+    the drivers log it once: for a CUDA device 'nvjpeg (<its backends>;
+    nvJPEG <version>)' (runtime/card.py; raises where the card pipeline
+    cannot be opened); elsewhere 'native' (the C++ pipeline), or 'pil (<why
+    the pipeline is not there: the first line of native.build_error>)'."""
+    if device is not None and torch.device(device).type == "cuda":
+        card.open_pipeline(device)
+        return card.describe()
     if native.available():
         return "native"
     return f"pil ({native.build_error.splitlines()[0]})"
@@ -98,14 +106,20 @@ class ImageList:
     does not keep). host_shard=(i, n): this host's share of a list padded
     by wrapping to a multiple of n; its first `num_real` entries are the
     list's own, the rest wrap padding. rrc_scale: RandomResizedCrop's area
-    range. use_native: "auto" decodes with the C++ pipeline where it
-    builds (runtime/native.available()) and with PIL elsewhere; True
-    insists on the pipeline (get_batch raises where it cannot be built);
-    False decodes with PIL."""
+    range. device: where the batches go. For a CUDA device, use_native
+    "auto" or True decodes and augments on the card (runtime/card.py,
+    get_batch returns a uint8 card tensor) and raises here, with
+    card.build_error, where that pipeline cannot be built or opened.
+    Elsewhere "auto" decodes with the C++ pipeline where it builds
+    (runtime/native.available()) and with PIL otherwise, and True insists
+    on the C++ pipeline (get_batch raises where it cannot be built).
+    False decodes with PIL on any device. `decoded` counts the entries by
+    what decoded them ('hardware', 'default', 'pil') on the card path."""
 
     def __init__(self, root, list_path, training, image_size=224,
                  list_reader=default_list_reader, loader=pil_loader,
-                 host_shard=None, use_native="auto", rrc_scale=(0.08, 1.0)):
+                 host_shard=None, use_native="auto", rrc_scale=(0.08, 1.0),
+                 device=None):
         self.root = root
         self.img_list = list_reader(list_path)
         self.num_real = len(self.img_list)
@@ -118,9 +132,20 @@ class ImageList:
         self.training = training
         self.image_size = image_size
         self.loader = loader
-        self.use_native = (native.available() if use_native == "auto"
-                           else bool(use_native))
+        self.device = None if device is None else torch.device(device)
+        if use_native is False:
+            self.decoder = "pil"
+        elif self.device is not None and self.device.type == "cuda":
+            card.open_pipeline(self.device)
+            self.decoder = "card"
+        elif use_native == "auto":
+            self.decoder = "native" if native.available() else "pil"
+        else:
+            self.decoder = "native"
+        self.use_native = self.decoder != "pil"
         self.rrc_scale = tuple(rrc_scale)
+        self.decoded = collections.Counter()
+        self._count_lock = threading.Lock()
 
     def __len__(self):
         return len(self.img_list)
@@ -128,12 +153,56 @@ class ImageList:
     def get_batch(self, indices, rng):
         """(xs [n, S, S, 3] uint8, ys [n] int32) of the entries `indices`,
         with the random draws of training taken from `rng` image by
-        image."""
-        if not self.use_native:
+        image; xs is a card tensor on the card path, else numpy."""
+        if self.decoder == "pil":
             return self._get_batch_pil(indices, rng)
+        ys, datas, sizes, draws, pil_imgs = self._read_and_draw(indices, rng)
+
+        def host_pixels(j):  # an entry the decoder refused: PIL decode
+            img = pil_imgs.get(j)
+            if img is None:
+                img_path = self.img_list[indices[j]][0]
+                img = self.loader(os.path.join(self.root, img_path))
+            return np.asarray(img, np.uint8)
+
+        boxes, flips, orders, factors = draws
+        if self.decoder == "card":
+            if self.training:
+                xs, backends = card.decode_augment_train_batch(
+                    datas, sizes, boxes, self.image_size, flips, orders,
+                    factors, host_pixels, self.device)
+            else:
+                xs, backends = card.decode_augment_val_batch(
+                    datas, self.image_size, host_pixels, self.device)
+            with self._count_lock:
+                self.decoded.update(backends)
+            return xs, ys
+        if self.training:
+            xs, status = native.decode_augment_train_batch_u8(
+                datas, boxes, self.image_size, flips, orders, factors)
+        else:
+            xs, status = native.decode_augment_val_batch_u8(
+                datas, 256, self.image_size)
+        for j in np.nonzero(status)[0]:  # not JPEG, or corrupt: PIL decode
+            arr = host_pixels(j)
+            if self.training:  # the same augment on PIL's pixels
+                x = native.augment_train_from_array(
+                    arr, boxes[j], self.image_size, flips[j], orders[j],
+                    factors[j])
+            else:
+                x = native.augment_val(arr, 256, self.image_size)
+            xs[j] = quantize_u8(x)
+        return xs, ys
+
+    def _read_and_draw(self, indices, rng):
+        """(ys, the files' bytes, the (w, h) each draw was made for, the
+        draws (boxes, flips, orders, factors), the entries PIL decoded for
+        their size) of a batch. For training, image by image: the size
+        from the JPEG header (or PIL), then sample_rrc_box, the flip,
+        sample_jitter."""
         n = len(indices)
         ys = np.empty((n,), np.int32)
-        datas, boxes, flips, orders, factors = [], [], [], [], []
+        datas, sizes, boxes, flips, orders, factors = [], [], [], [], [], []
         pil_imgs = {}
         for j, index in enumerate(indices):
             img_path, ys[j] = self.img_list[index]
@@ -146,31 +215,13 @@ class ImageList:
                 except ValueError:
                     pil_imgs[j] = self.loader(path)
                     w, h = pil_imgs[j].size
+                sizes.append((w, h))
                 boxes.append(sample_rrc_box(w, h, rng, self.rrc_scale))
                 flips.append(rng.random() < 0.5)
                 order, facs = sample_jitter(rng)
                 orders.append(order)
                 factors.append(facs)
-        if self.training:
-            xs, status = native.decode_augment_train_batch_u8(
-                datas, boxes, self.image_size, flips, orders, factors)
-        else:
-            xs, status = native.decode_augment_val_batch_u8(
-                datas, 256, self.image_size)
-        for j in np.nonzero(status)[0]:  # not JPEG, or corrupt: PIL decode
-            img = pil_imgs.get(j)
-            if img is None:
-                img_path = self.img_list[indices[j]][0]
-                img = self.loader(os.path.join(self.root, img_path))
-            arr = np.asarray(img, np.uint8)
-            if self.training:  # the same augment on PIL's pixels
-                x = native.augment_train_from_array(
-                    arr, boxes[j], self.image_size, flips[j], orders[j],
-                    factors[j])
-            else:
-                x = native.augment_val(arr, 256, self.image_size)
-            xs[j] = quantize_u8(x)
-        return xs, ys
+        return ys, datas, sizes, (boxes, flips, orders, factors), pil_imgs
 
     def _get_batch_pil(self, indices, rng):
         """get_batch entry by entry through PIL: each image's draws (crop
@@ -294,13 +345,15 @@ class DataLoader:
 
 
 class DevicePrefetcher:
-    """Batches of numpy arrays (and a trailing valid count) -> tensors on
-    `device`, `depth` batches ahead of the consumer.
+    """Batches of numpy arrays or card tensors (and a trailing valid count)
+    -> tensors on `device`, `depth` batches ahead of the consumer.
 
-    On the card each batch is copied into pinned host memory and sent with
-    non_blocking copies on a side stream; the consumer's stream waits on
-    the copy's event before it uses the batch. Labels become int64. On the
-    CPU the arrays are wrapped without a copy."""
+    On the card each numpy array is copied into pinned host memory and
+    sent with non_blocking copies on a side stream; a batch that is already
+    on the card (the card decoder's, made on a stream its loader thread
+    synchronised) passes through. The consumer's stream waits on the copy's
+    event before it uses the batch, and takes over its memory. Labels
+    become int64. On the CPU the arrays are wrapped without a copy."""
 
     def __init__(self, it, device, depth=2):
         self.it = iter(it)
@@ -310,8 +363,9 @@ class DevicePrefetcher:
     @staticmethod
     def _host(batch):
         x, y = batch[0], batch[1]
-        return ((torch.from_numpy(np.ascontiguousarray(x)),
-                 torch.from_numpy(np.asarray(y, np.int64))), batch[2:])
+        if not torch.is_tensor(x):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return (x, torch.from_numpy(np.asarray(y, np.int64))), batch[2:]
 
     def __iter__(self):
         if self.device.type != "cuda":
@@ -323,7 +377,7 @@ class DevicePrefetcher:
         pending = collections.deque()
         for batch in self.it:
             tensors, rest = self._host(batch)
-            pinned = [t.pin_memory() for t in tensors]
+            pinned = [t if t.is_cuda else t.pin_memory() for t in tensors]
             with torch.cuda.stream(stream):
                 on_card = tuple(t.to(self.device, non_blocking=True)
                                 for t in pinned)

@@ -27,11 +27,6 @@ import collections
 import contextlib
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
@@ -39,6 +34,7 @@ import torch.nn.functional as F
 
 from ..ops.activations import apply_act
 from ..ops.batchnorm import stat_dtype
+from . import nvcc
 
 KPAD = 2
 # the kernel's fixed geometry (csrc/fused_dw.cu)
@@ -55,9 +51,8 @@ SMEM_RESERVED = 1024       # the runtime's reserve per block
 _ACT_CODES = {None: 0, "relu": 1, "swish": 2, "h-swish": 3, "relu6": 4}
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_dw.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tfnas_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BUILD_DIR = nvcc.BUILD_DIR
+NVCC_FLAGS = nvcc.SM90A_FLAGS
 
 # kernel launches by stride since import (or the last reset); plain-version
 # calls on CPU tensors do not count
@@ -83,40 +78,13 @@ def launch_counts():
             "replayed_nodes": dict(replayed)}
 
 
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the fused_dw kernel is built with "
-                       "the CUDA toolkit's nvcc on the machine with the card")
-
-
 def build_library():
     """Compile csrc/fused_dw.cu into a C-ABI shared library under
     BUILD_DIR, once per source content and flags, and return its path."""
     global build_info
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libfused_dw_{tag}.so"
-    if out.exists():
-        build_info = {"path": str(out), "seconds": 0.0, "log": "cached"}
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(_SOURCE)], capture_output=True, text=True,
-                          timeout=600)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {_SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_info = {"path": str(out), "seconds": time.perf_counter() - t0,
-                  "log": proc.stderr.strip()}
-    return out
+    build_info = nvcc.build(_SOURCE, "libfused_dw", NVCC_FLAGS,
+                            build_dir=BUILD_DIR)
+    return Path(build_info["path"])
 
 
 def _library():

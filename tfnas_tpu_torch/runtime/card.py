@@ -1,0 +1,560 @@
+"""The image pipeline on the card: nvJPEG decode and the hand-written fused
+augment kernel (`csrc/image_decode.cu`), the port's counterpart of the C++
+pipeline `runtime/native.py` + `src/image_pipeline.cpp` for lists that
+feed a CUDA device.
+
+A batch goes: the random draws in Python (data/imagelist.py, as the native
+path takes them) -> `tfnas_card_probe` (each entry's size and backend, on
+the host) -> one torch-allocated device buffer laid out by `decode_layout`
+-> `tfnas_card_decode` (nvJPEG's hardware backend for what it supports,
+its default backend for the rest) -> `augment_train` / `augment_val` (the
+kernel) -> uint8 [n, S, S, 3] on the card. Entries nvJPEG refuses (not a
+JPEG, CMYK, truncated) come back with a non-zero status; the caller's
+host decode (PIL) gives their pixels, which are uploaded and go through
+the same kernel. Each DataLoader thread borrows a worker: its own nvJPEG
+decode states and CUDA stream (the only stream it synchronises); small
+host-to-card copies go through torch's pinned-memory cache.
+
+The library is built with nvcc at first use into `build/tfnas_tpu_torch/`
+(kernels/nvcc.py) and loads nvJPEG from the CUDA toolkit with dlopen.
+`available()` says whether it built and opened here; `build_error` then
+says why not. On CPU tensors `augment_train` / `augment_val` run the plain
+versions `augment_train_plain` / `augment_val_plain` + `quantize_plain`,
+the same arithmetic operation by operation; the CPU tests hold those
+against the JAX package's C++ augment, and the card tests and
+chip_smoke.py hold the kernel against them. `launches["augment"]` counts
+the kernel's launches (a stats and a write pass each).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import math
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..kernels import nvcc
+
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "image_decode.cu"
+NVCC_FLAGS = nvcc.SM90A_FLAGS
+LIBS = ("-ldl",)
+MODE_TRAIN, MODE_VAL = 0, 1
+VAL_RESIZE = 256          # the val transform's short side
+PIXELS_PER_BLOCK = 1024   # output pixels of one kernel block (256 threads)
+ALIGN = 256               # bytes: each decoded image's start in the buffer
+BACKENDS = ("hardware", "default")
+# csrc/image_decode.cu `ImageArgs`, field for field
+IMAGE_ARGS = np.dtype([
+    ("src", "<i8"), ("row", "<i8"), ("col", "<i8"), ("chan", "<i8"),
+    ("h", "<i4"), ("w", "<i4"), ("ox", "<i4"), ("oy", "<i4"),
+    ("num_x", "<i4"), ("den_x", "<i4"), ("num_y", "<i4"), ("den_y", "<i4"),
+    ("flip", "<i4"), ("order", "<i4", (4,)), ("factors", "<f4", (4,))],
+    align=True)
+
+# kernel launches since import (or the last reset); plain calls do not count
+launches = {"augment": 0}
+# how the loaded library was obtained: {"path", "seconds", "log"}
+build_info = None
+# why the library could not be built, loaded or opened, once that was tried
+build_error = None
+# nvJPEG's version and backends once opened (`open_pipeline`)
+info = None
+_lib = None
+_lock = threading.Lock()
+_idle = []   # workers not in use
+
+
+def reset_launches():
+    launches["augment"] = 0
+
+
+# -- building and opening ------------------------------------------------------
+
+def nvjpeg_path():
+    """libnvjpeg's file in the CUDA toolkit: libnvjpeg.so where the
+    link-time symlink is there, else the highest libnvjpeg.so.N."""
+    home = nvcc.cuda_home()
+    dirs = [home / "lib64", home / "targets" / "x86_64-linux" / "lib",
+            home / "lib"]
+    for d in dirs:
+        if (d / "libnvjpeg.so").exists():
+            return d / "libnvjpeg.so"
+        found = sorted(d.glob("libnvjpeg.so.*"), key=lambda p: [
+            int(t) if t.isdigit() else 0 for t in p.name.split(".")[2:]])
+        if found:
+            return found[-1]
+    raise RuntimeError(f"no libnvjpeg.so under {', '.join(map(str, dirs))}")
+
+
+def build_library():
+    """Compile csrc/image_decode.cu into BUILD_DIR (once per source content
+    and flags) and return its path; raises when nvcc fails."""
+    global build_info
+    build_info = nvcc.build(_SOURCE, "libtfnas_card", NVCC_FLAGS, LIBS)
+    return Path(build_info["path"])
+
+
+def _load():
+    global _lib, build_error
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if build_error is not None:  # tried once: fail fast
+            raise RuntimeError(build_error)
+        try:
+            lib = ctypes.CDLL(str(build_library()))
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            build_error = f"{type(e).__name__}: {e}"
+            raise RuntimeError(build_error) from e
+        p, i = ctypes.c_void_p, ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.tfnas_card_open.argtypes = [ctypes.c_char_p, i, ip]
+        lib.tfnas_card_dlerror.argtypes = []
+        lib.tfnas_card_dlerror.restype = ctypes.c_char_p
+        lib.tfnas_card_worker.argtypes = [ctypes.POINTER(p)]
+        lib.tfnas_card_probe.argtypes = [p, p, p, i, p]
+        lib.tfnas_card_decode.argtypes = [p, p, p, i, p, p, p, p]
+        lib.tfnas_augment.argtypes = [p, i, i, i, i, p, p, p]
+        for fn in (lib.tfnas_card_open, lib.tfnas_card_worker,
+                   lib.tfnas_card_probe, lib.tfnas_card_decode,
+                   lib.tfnas_augment):
+            fn.restype = i
+        _lib = lib
+    return _lib
+
+
+def open_pipeline(device):
+    """Build and load the library, load nvJPEG and create its handles on
+    `device` (once per process): {"nvjpeg": version, "hardware": whether
+    the hardware backend is there, "hardware_status": nvjpegCreateEx's
+    status for it, "hw_planar", "device"}. Raises RuntimeError (with
+    build_error) when any of it fails, or for a second device."""
+    global info, build_error
+    lib = _load()
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    with _lock:
+        if info is None:
+            if build_error is not None:
+                raise RuntimeError(build_error)
+            try:
+                path = str(nvjpeg_path())
+            except RuntimeError as e:
+                build_error = f"RuntimeError: {e}"
+                raise
+            props = (ctypes.c_int * 7)()
+            with torch.cuda.device(index):
+                rc = lib.tfnas_card_open(path.encode(), index, props)
+            if rc != 0:
+                why = (lib.tfnas_card_dlerror().decode() if rc == -1 else
+                       f"nvjpegCreateEx(default backend) status {rc - 1000}"
+                       if rc >= 1000 else f"cudaSetDevice({index}) failed")
+                build_error = f"RuntimeError: nvJPEG ({path}): {why}"
+                raise RuntimeError(build_error)
+            info = {"nvjpeg": f"{props[0]}.{props[1]}.{props[2]}",
+                    "hardware": props[3] == 0,
+                    "hardware_status": props[3],
+                    "hw_planar": bool(props[4]), "device": props[5],
+                    "flags": props[6], "library": path}
+        if info["device"] != index:
+            raise RuntimeError(f"the card pipeline is open on cuda:"
+                               f"{info['device']}, not cuda:{index}")
+    return info
+
+
+def available(device="cuda"):
+    """Whether the pipeline builds and opens on `device` here; when false,
+    `build_error` says why (or there is no card)."""
+    if not torch.cuda.is_available():
+        return False
+    try:
+        open_pipeline(device)
+    except RuntimeError:
+        return False
+    return True
+
+
+def describe():
+    """The decoder line of an opened pipeline, as the drivers log it."""
+    if info["hardware"]:
+        how = "hardware backend; default backend for what it refuses"
+    else:
+        how = (f"default backend; no hardware backend: status "
+               f"{info['hardware_status']}")
+    return f"nvjpeg ({how}; nvJPEG {info['nvjpeg']})"
+
+
+class _Worker:
+    """One loader thread's decode states and stream."""
+
+    def __init__(self, lib, device):
+        handle = ctypes.c_void_p()
+        rc = lib.tfnas_card_worker(ctypes.byref(handle))
+        if rc != 0:
+            raise RuntimeError(f"nvJPEG decode state: status {rc - 1000}")
+        self.handle = handle
+        self.stream = torch.cuda.Stream(device)
+
+
+@contextlib.contextmanager
+def _worker(lib, device):
+    with _lock:
+        wk = _idle.pop() if _idle else None
+    if wk is None:
+        wk = _Worker(lib, device)
+    try:
+        yield wk
+    finally:
+        with _lock:
+            _idle.append(wk)
+
+
+# -- the launch wrapper's arithmetic (runs without a card) ---------------------
+
+def decode_layout(sizes):
+    """(byte offsets, total bytes) of decoded images of (width, height)
+    `sizes` back to back in one buffer, each start aligned to ALIGN bytes;
+    each takes 3 w h bytes, interleaved or planar."""
+    offsets, total = [], 0
+    for w, h in sizes:
+        offsets.append(total)
+        total += -(-3 * int(w) * int(h) // ALIGN) * ALIGN
+    return offsets, total
+
+
+def image_strides(w, h, planar):
+    """(row, column, channel) element strides of a decoded [h, w, 3]
+    image: planar RGB is three h x w planes, interleaved RGB one 3w-pitched
+    image."""
+    return (w, 1, w * h) if planar else (3 * w, 3, 1)
+
+
+def rows_per_block(size):
+    """Output rows of one kernel block: about PIXELS_PER_BLOCK pixels."""
+    return max(1, PIXELS_PER_BLOCK // size)
+
+
+def _lround(x):
+    """std::lround for x >= 0: the nearest integer, halves away from 0."""
+    f = math.floor(x)
+    return int(f + 1 if x - f >= 0.5 else f)
+
+
+def val_geometry(w, h, size, resize=VAL_RESIZE):
+    """(nw, nh, x0, y0): the image resized to short side `resize` and the
+    corner of its centre crop of `size`, with image_pipeline.cpp's integer
+    arithmetic (lround of the scaled side, C division)."""
+    if w < h:
+        nw, nh = resize, _lround(h * resize / w)
+    else:
+        nw, nh = _lround(w * resize / h), resize
+    return nw, nh, int((nw - size) / 2), int((nh - size) / 2)
+
+
+def image_args(images, size, boxes=None, flips=None, orders=None,
+               factors=None, resize=VAL_RESIZE):
+    """The kernel's per-image arguments (IMAGE_ARGS) for uint8 [H, W, 3]
+    tensors of any strides: train with `boxes` (x, y, w, h), flips,
+    jitter orders and factors; val without."""
+    a = np.zeros(len(images), IMAGE_ARGS)
+    for i, img in enumerate(images):
+        h, w = img.shape[:2]
+        a[i]["src"] = img.data_ptr()
+        a[i]["row"], a[i]["col"], a[i]["chan"] = img.stride()
+        a[i]["h"], a[i]["w"] = h, w
+        a[i]["order"] = -1
+        if boxes is None:
+            nw, nh, x0, y0 = val_geometry(w, h, size, resize)
+            a[i]["ox"], a[i]["oy"] = x0, y0
+            a[i]["num_x"], a[i]["den_x"] = w, nw
+            a[i]["num_y"], a[i]["den_y"] = h, nh
+        else:
+            cx, cy, cw, ch = (int(v) for v in boxes[i])
+            a[i]["ox"], a[i]["oy"] = cx, cy
+            a[i]["num_x"], a[i]["den_x"] = cw, size
+            a[i]["num_y"], a[i]["den_y"] = ch, size
+            a[i]["flip"] = int(bool(flips[i]))
+            a[i]["order"][:len(orders[i])] = orders[i]
+            a[i]["factors"] = np.asarray(factors[i], np.float32)
+    return a
+
+
+# -- the kernel and its plain version ------------------------------------------
+
+def _check_images(images):
+    if not images:
+        raise ValueError("the augment needs at least one image")
+    dev = images[0].device
+    for img in images:
+        if (img.dtype != torch.uint8 or img.dim() != 3 or img.shape[2] != 3
+                or img.device != dev or img.shape[0] < 1
+                or img.shape[1] < 1):
+            raise ValueError(f"images must be uint8 [H, W, 3] tensors on "
+                             f"one device, got {img.dtype} "
+                             f"{tuple(img.shape)} on {img.device}")
+    return dev
+
+
+def _launch(images, mode, size, args):
+    n = len(images)
+    if not 1 <= n <= 65535 or size < 1:
+        raise ValueError(f"the kernel takes 1 to 65535 images of size >= 1, "
+                         f"got {n} of {size}")
+    lib = _load()
+    dev = images[0].device
+    rows = rows_per_block(size)
+    tiles = -(-size // rows)
+    host = torch.from_numpy(args.view(np.uint8)).pin_memory()
+    dargs = host.to(dev, non_blocking=True)
+    out = torch.empty((n, size, size, 3), dtype=torch.uint8, device=dev)
+    partial = torch.empty((n, tiles), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.tfnas_augment(dargs.data_ptr(), n, mode, size, rows,
+                               partial.data_ptr(), out.data_ptr(),
+                               torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"augment kernel launch failed with CUDA error "
+                           f"{rc}")
+    launches["augment"] += 1
+    return out
+
+
+def augment_train(images, boxes, size, flips, orders, factors):
+    """uint8 [n, size, size, 3]: the train augment of each uint8 [H, W, 3]
+    image (any strides): crop box `boxes[i]` (x, y, w, h) resized to size
+    x size, flipped, jittered in `orders[i]` with `factors[i]`, clipped and
+    quantised. The kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    dev = _check_images(images)
+    if dev.type == "cuda":
+        return _launch(images, MODE_TRAIN, size, image_args(
+            images, size, boxes, flips, orders, factors))
+    if dev.type == "cpu":
+        return torch.stack([quantize_plain(augment_train_plain(
+            img, boxes[i], size, flips[i], orders[i], factors[i]))
+            for i, img in enumerate(images)])
+    raise ValueError(f"the augment has no version for device {dev}")
+
+
+def augment_val(images, size, resize=VAL_RESIZE):
+    """uint8 [n, size, size, 3]: each image's short side resized to
+    `resize`, the centre size x size crop, quantised. The kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    dev = _check_images(images)
+    if dev.type == "cuda":
+        return _launch(images, MODE_VAL, size,
+                       image_args(images, size, resize=resize))
+    if dev.type == "cpu":
+        return torch.stack([quantize_plain(augment_val_plain(
+            img, size, resize)) for img in images])
+    raise ValueError(f"the augment has no version for device {dev}")
+
+
+def _f32(v, dev):
+    return torch.tensor(v, dtype=torch.float32, device=dev)
+
+
+def _bilinear_plain(img, sx, sy):
+    """image_pipeline.cpp `bilinear` at every (sy[i], sx[j]), scaled to
+    [0, 1]: f32 [len(sy), len(sx), 3]."""
+    h, w = img.shape[:2]
+    sx, sy = sx.clamp(0.0, float(w - 1)), sy.clamp(0.0, float(h - 1))
+    x0, y0 = sx.long(), sy.long()
+    x1, y1 = (x0 + 1).clamp(max=w - 1), (y0 + 1).clamp(max=h - 1)
+    fx = (sx - x0.float())[None, :, None]
+    fy = (sy - y0.float())[:, None, None]
+    p = img.int()
+    p00, p01 = p[y0[:, None], x0[None, :]], p[y0[:, None], x1[None, :]]
+    p10, p11 = p[y1[:, None], x0[None, :]], p[y1[:, None], x1[None, :]]
+    top = p00.float() + (p01 - p00).float() * fx
+    bot = p10.float() + (p11 - p10).float() * fx
+    inv = _f32(1.0, img.device) / _f32(255.0, img.device)
+    return (top + (bot - top) * fy) * inv
+
+
+def _gray_plain(x):
+    dev = x.device
+    return ((_f32(0.299, dev) * x[..., 0] + _f32(0.587, dev) * x[..., 1])
+            + _f32(0.114, dev) * x[..., 2])
+
+
+def _hue_plain(x, shift):
+    r, g, b = x.unbind(-1)
+    maxc = torch.maximum(r, torch.maximum(g, b))
+    minc = torch.minimum(r, torch.minimum(g, b))
+    v, delta = maxc, maxc - minc
+    s = torch.where(maxc > 0, delta / maxc.clamp(min=1e-12), 0.0)
+    dz = delta.clamp(min=1e-12)
+    hh = torch.where(maxc == r, torch.fmod((g - b) / dz, 6.0),
+                     torch.where(maxc == g, (b - r) / dz + 2.0,
+                                 (r - g) / dz + 4.0))
+    hh = torch.where(delta == 0, 0.0, hh)
+    hh = torch.where(hh < 0, hh + 6.0, hh)
+    hn = hh / 6.0 + shift
+    hn = hn - torch.floor(hn)
+    h6 = hn * 6.0
+    ii = (h6.int() % 6).long()
+    fr = h6 - torch.floor(h6)
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * fr)
+    t = v * (1.0 - s * (1.0 - fr))
+    pick = [torch.stack(c, -1).gather(-1, ii[..., None])[..., 0] for c in (
+        (v, q, p, p, t, v), (t, v, v, q, p, p), (p, p, t, v, v, q))]
+    return torch.stack(pick, -1)
+
+
+def _jitter_plain(x, op, f):
+    if op == 0:
+        return x * f
+    if op == 1:
+        m = (_gray_plain(x).double().sum() / (x.shape[0] * x.shape[1])
+             ).float()
+        return (x - m) * f + m
+    if op == 2:
+        g = _gray_plain(x)[..., None]
+        return (x - g) * f + g
+    return _hue_plain(x, f)
+
+
+def augment_train_plain(img, box, size, flip, order, factors):
+    """The plain version of the train augment of one uint8 [H, W, 3] image,
+    as f32 [size, size, 3] in [0, 1] before quantisation:
+    image_pipeline.cpp `tfnas_augment_train` step by step (crop-box
+    sample, flip, the jitter ops in `order` with no clip between them,
+    clip)."""
+    dev = img.device
+    cx, cy, cw, ch = (int(v) for v in box)
+    o = torch.arange(size, dtype=torch.float32, device=dev) + 0.5
+    sx = (_f32(cx, dev) + o * (_f32(cw, dev) / _f32(size, dev))) - 0.5
+    sy = (_f32(cy, dev) + o * (_f32(ch, dev) / _f32(size, dev))) - 0.5
+    x = _bilinear_plain(img, sx, sy)
+    if flip:
+        x = x.flip(1)
+    fac = torch.tensor(np.asarray(factors, np.float32), device=dev)
+    for op in order:
+        x = _jitter_plain(x, op, fac[op])
+    return x.clamp(0.0, 1.0)
+
+
+def augment_val_plain(img, size, resize=VAL_RESIZE):
+    """The plain version of the val transform of one uint8 [H, W, 3]
+    image (image_pipeline.cpp `tfnas_augment_val`), as f32 [size, size, 3]
+    in [0, 1]."""
+    dev = img.device
+    h, w = img.shape[:2]
+    nw, nh, x0, y0 = val_geometry(w, h, size, resize)
+    o = torch.arange(size, device=dev)
+    sx = ((o + x0).float() + 0.5) * (_f32(w, dev) / _f32(nw, dev)) - 0.5
+    sy = ((o + y0).float() + 0.5) * (_f32(h, dev) / _f32(nh, dev)) - 0.5
+    return _bilinear_plain(img, sx, sy)
+
+
+def quantize_plain(x):
+    """f32 pixels in [0, 1] -> uint8 rint(x * 255), halves away from 0
+    (image_pipeline.cpp `quantize_u8`'s lround)."""
+    v = (x * 255.0).clamp(0.0, 255.0)
+    return torch.floor(v.double() + 0.5).to(torch.uint8)
+
+
+# -- a batch through the card --------------------------------------------------
+
+def _ptr_array(datas):
+    bufs = [np.frombuffer(d, np.uint8) for d in datas]
+    ptrs = np.asarray([b.ctypes.data for b in bufs], np.uint64)
+    lens = np.asarray([len(d) for d in datas], np.uint64)
+    return ptrs, lens, bufs
+
+
+def _decode(lib, wk, datas, sizes, fallback, device):
+    """Decode `datas` into one device buffer on the worker's stream: the
+    list of uint8 [H, W, 3] images (views of the buffer, or uploads of
+    fallback(i)'s host pixels for the entries nvJPEG refused, or whose size
+    is not `sizes[i]`; None there without a fallback), their backends
+    ('hardware', 'default', 'pil', or 'refused' without a fallback) and the
+    buffer."""
+    n = len(datas)
+    ptrs, lens, keep = _ptr_array(datas)
+    meta = np.zeros((n, 3), np.int32)
+    lib.tfnas_card_probe(wk.handle, ptrs.ctypes.data, lens.ctypes.data, n,
+                         meta.ctypes.data)
+    if sizes is not None:  # the draws took these sizes: keep them
+        for i, (w, h) in enumerate(sizes):
+            if (meta[i, 0], meta[i, 1]) != (w, h):
+                meta[i, 2] = -1
+    offsets, total = decode_layout(meta[:, :2].tolist())
+    buf = torch.empty(max(total, 1), dtype=torch.uint8, device=device)
+    dst = np.asarray([buf.data_ptr() + o for o in offsets], np.uint64)
+    status = np.zeros(n, np.int32)
+    rc = lib.tfnas_card_decode(wk.handle, ptrs.ctypes.data, lens.ctypes.data,
+                               n, meta.ctypes.data, dst.ctypes.data,
+                               status.ctypes.data, wk.stream.cuda_stream)
+    del keep
+    if rc != 0:
+        raise RuntimeError(f"nvJPEG decode failed with CUDA error {rc}")
+    images, backends = [], []
+    for i in range(n):
+        if status[i] == 0:
+            w, h, backend = (int(v) for v in meta[i])
+            strides = image_strides(w, h, backend == 0 and info["hw_planar"])
+            images.append(torch.as_strided(buf, (h, w, 3), strides,
+                                           offsets[i]))
+            backends.append(BACKENDS[backend])
+        elif fallback is None:
+            images.append(None)
+            backends.append("refused")
+        else:
+            host = np.array(fallback(i), np.uint8)  # a writable copy
+            images.append(torch.from_numpy(host).to(device))
+            backends.append("pil")
+    return images, backends, buf
+
+
+@contextlib.contextmanager
+def _on_worker(device):
+    """A worker of the opened pipeline, its device and stream current; the
+    stream is synchronised (and only it) before the worker is handed on."""
+    lib = _load()
+    open_pipeline(device)
+    with torch.cuda.device(device), _worker(lib, device) as wk, \
+            torch.cuda.stream(wk.stream):
+        yield lib, wk
+        wk.stream.synchronize()
+
+
+def decode_batch(datas, device):
+    """nvJPEG's decode of JPEG bytes `datas` on `device`: (uint8 [H, W, 3]
+    card tensors, None for the entries it refuses; each entry's backend:
+    'hardware', 'default' or 'refused')."""
+    with _on_worker(device) as (lib, wk):
+        images, backends, _ = _decode(lib, wk, datas, None, None, device)
+    return images, backends
+
+
+def decode_augment_train_batch(datas, sizes, boxes, size, flips, orders,
+                               factors, fallback, device):
+    """Decode JPEG bytes `datas` with nvJPEG and train-augment them with the
+    kernel on `device`: (uint8 [n, size, size, 3] on the card, each
+    entry's backend). sizes[i]: the (w, h) the draws were made for;
+    fallback(i): host uint8 [H, W, 3] pixels of an entry nvJPEG refuses.
+    Synchronises the worker's stream only."""
+    with _on_worker(device) as (lib, wk):
+        images, backends, buf = _decode(lib, wk, datas, sizes, fallback,
+                                        device)
+        out = augment_train(images, boxes, size, flips, orders, factors)
+    return out, backends
+
+
+def decode_augment_val_batch(datas, size, fallback, device,
+                             resize=VAL_RESIZE):
+    """decode_augment_train_batch for the val transform."""
+    with _on_worker(device) as (lib, wk):
+        images, backends, buf = _decode(lib, wk, datas, None, fallback,
+                                        device)
+        out = augment_val(images, size, resize)
+    return out, backends

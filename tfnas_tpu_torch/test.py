@@ -85,8 +85,9 @@ def main(argv=None):
                                    args.image_size, shard=host_shard())
     else:
         ds = ImageList(args.val_root, args.val_list, training=False,
-                       image_size=args.image_size, host_shard=host_shard())
-        show('image decode: {}'.format(image_decoder()))
+                       image_size=args.image_size, host_shard=host_shard(),
+                       device=device)
+        show('image decode: {}'.format(image_decoder(device)))
         batches = DataLoader(ds, local_batch(args.batch_size), shuffle=False,
                              num_workers=args.workers, drop_last=False,
                              pad_last=True)

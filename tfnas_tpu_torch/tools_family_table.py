@@ -3,7 +3,7 @@
 
     python -m tfnas_tpu_torch.tools_family_table [--root checkpoints_e2e]
         [--json] [--band LUT_PKL] [--rescore_tag TAG] [--budget_epoch 3]
-        [--lookup_path LUT_PKL]
+        [--lookup_path LUT_PKL] [--device cpu]
 
 Walks `<root>/<name>/search-*/model.config` directories that have a
 sibling `<root>/<name>-retrain/eval-*/test.txt` (or, with --rescore_tag,
@@ -17,8 +17,8 @@ a port run: latency_pkl/latency_h100.pkl), and a hybrid-space run takes
 its `_hybrid` sibling (latency_h100_hybrid.pkl), which holds the ViT
 keys. --band prints the space's
 single-path min and max (latency, FLOPs) on a table first. Markdown, or
-one JSON line with --json. No device work: it runs on the CPU unless
---device says otherwise.
+one JSON line with --json. Its only device work is each net's parameter
+init, on the card unless --device cpu.
 """
 
 from __future__ import annotations
@@ -171,7 +171,8 @@ parser.add_argument("--lookup_path", default=None,
                     help="one latency table for every run, its _hybrid "
                          "sibling for hybrid runs (default: each run's "
                          "own, from its search log)")
-parser.add_argument("--device", type=str, default="cpu")
+parser.add_argument("--device", type=str, default=None,
+                    help="default: the card")
 
 
 def main(argv=None):

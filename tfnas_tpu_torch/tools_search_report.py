@@ -15,9 +15,9 @@ after elasticity against the target, from the log, and (d) the final
 checkpoint parsed (search/parser.py) into an EvalNetwork of 1000 classes:
 depths, FLOPs, parameters and the nearest TF-NAS FLOPs class.
 --lookup_path is accepted as in the JAX tool, which reads the latencies
-from the log and not from a table. The report does no device work: it runs
-on the CPU unless --device says otherwise. --json_out writes (a)-(d) as
-one JSON object.
+from the log and not from a table. Its only device work is the parsed
+net's parameter init, on the card unless --device cpu. --json_out writes
+(a)-(d) as one JSON object.
 """
 
 from __future__ import annotations
@@ -115,7 +115,8 @@ parser.add_argument("--json_out", default="")
 parser.add_argument("--space", default="mbconv", choices=["mbconv", "hybrid"],
                     help="the space the run searched; hybrid only changes "
                          "the uniform-entropy reference (9 ops)")
-parser.add_argument("--device", type=str, default="cpu")
+parser.add_argument("--device", type=str, default=None,
+                    help="default: the card")
 
 
 def main(argv=None):

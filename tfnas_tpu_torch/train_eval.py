@@ -116,10 +116,11 @@ def local_batch(batch_size):
     return batch_size // shard[1]
 
 
-def make_loaders(args):
-    """(train_iter(epoch), val_iter(epoch)) of numpy batches, this rank's
-    share of each global batch; validation batches are (x, y, n_valid)
-    over the padded full set."""
+def make_loaders(args, device=None):
+    """(train_iter(epoch), val_iter(epoch)) of batches, this rank's share
+    of each global batch; validation batches are (x, y, n_valid) over the
+    padded full set. Real lists decode for `device` (on the card for a
+    CUDA device)."""
     bs = local_batch(args.batch_size)
     if args.synthetic:
         spe = args.steps_per_epoch or 50
@@ -137,9 +138,10 @@ def make_loaders(args):
         return train_iter, val_iter
     train_ds = ImageList(args.train_root, args.train_list, training=True,
                          image_size=args.image_size, host_shard=host_shard(),
-                         rrc_scale=(args.rrc_min_scale, 1.0))
+                         rrc_scale=(args.rrc_min_scale, 1.0), device=device)
     val_ds = ImageList(args.val_root, args.val_list, training=False,
-                       image_size=args.image_size, host_shard=host_shard())
+                       image_size=args.image_size, host_shard=host_shard(),
+                       device=device)
     tl = DataLoader(train_ds, bs, shuffle=True,
                     num_workers=args.workers, seed=args.seed)
     vl = DataLoader(val_ds, bs, shuffle=False,
@@ -183,7 +185,7 @@ def main(argv=None):
     device = local_device(resolve_device(args.device))
     rank, world = maybe_distributed_init(device)
     net = build_model(args)
-    train_iter, val_iter = make_loaders(args)
+    train_iter, val_iter = make_loaders(args, device)
     run_dir = None
     if is_main_process():
         run_dir = setup_experiment(args.save, 'eval', args.note)
@@ -194,7 +196,7 @@ def main(argv=None):
     logging.info("args = %s", args)
     logging.info("device: %s, rank %d of %d", device, rank, world)
     if not args.synthetic:
-        logging.info("image decode: %s", image_decoder())
+        logging.info("image decode: %s", image_decoder(device))
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     train_step, val_step = make_eval_steps(

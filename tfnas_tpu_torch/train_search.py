@@ -126,10 +126,11 @@ def load_resume(path, device):
             ckpt['mc_mask_dddict'], int(ckpt['epoch']), float(ckpt['T']))
 
 
-def make_loaders(args):
-    """(train_iter, val_iter, full_val_iter), each epoch -> numpy batches:
-    train batches, the arch steps' batches (shuffled, whole batches) and
-    the final validation's (x, y, n_valid) over the padded full set."""
+def make_loaders(args, device=None):
+    """(train_iter, val_iter, full_val_iter), each epoch -> batches: train
+    batches, the arch steps' batches (shuffled, whole batches) and the
+    final validation's (x, y, n_valid) over the padded full set. Real
+    lists decode for `device` (on the card for a CUDA device)."""
     if args.synthetic:
         spe = args.steps_per_epoch or 100
 
@@ -143,9 +144,9 @@ def make_loaders(args):
                 val, val)
     train_ds = ImageList(args.img_root, args.train_list, training=True,
                          image_size=args.image_size,
-                         rrc_scale=(args.rrc_min_scale, 1.0))
+                         rrc_scale=(args.rrc_min_scale, 1.0), device=device)
     val_ds = ImageList(args.img_root, args.val_list, training=False,
-                       image_size=args.image_size)
+                       image_size=args.image_size, device=device)
     tl = DataLoader(train_ds, args.batch_size, shuffle=True,
                     num_workers=args.workers, seed=args.seed)
     vl = DataLoader(val_ds, args.batch_size, shuffle=True,
@@ -482,12 +483,12 @@ def main(argv=None):
     space, lat_lookup = space_and_lut(args)
     mc_mask_dddict = space.build_mc_mask_dddict()
     key_dddict = space.build_lat_lookup_key_dddict()
-    train_iter, val_iter, full_val_iter = make_loaders(args)
+    train_iter, val_iter, full_val_iter = make_loaders(args, device)
     run_dir = setup_experiment(args.save, 'search', args.note)
     logging.info("args = %s", args)
     logging.info("device: %s", device)
     if not args.synthetic:
-        logging.info("image decode: %s", image_decoder())
+        logging.info("image decode: %s", image_decoder(device))
     mc_maxnum_dddict = get_mc_num_dddict(mc_mask_dddict, is_max=True)
     lv = lat_vectors_for_mc(lat_lookup, mc_maxnum_dddict, key_dddict,
                             space.NUM_OPS)

@@ -108,9 +108,10 @@ parser.add_argument('--eager', action='store_true',
                          'replaying them from CUDA graphs')
 
 
-def make_batches(args, mesh):
-    """epoch -> iterator of (x [L, B, H, W, 3], y [L, B]) numpy batches:
-    this rank's share of each of its L local groups' batches."""
+def make_batches(args, mesh, device=None):
+    """epoch -> iterator of (x [L, B, H, W, 3], y [L, B]) batches: this
+    rank's share of each of its L local groups' batches. Real lists decode
+    for `device` (on the card for a CUDA device)."""
     if args.batch_size % mesh.data_size:
         raise SystemExit(f"--batch_size {args.batch_size} does not divide "
                          f"over a group's {mesh.data_size} ranks")
@@ -131,7 +132,8 @@ def make_batches(args, mesh):
     ds = ImageList(args.img_root, args.train_list, training=True,
                    image_size=args.image_size,
                    host_shard=((mesh.data_rank, mesh.data_size)
-                               if mesh.data_size > 1 else None))
+                               if mesh.data_size > 1 else None),
+                   device=device)
     G, L = mesh.groups, len(mesh.local_groups)
     # only the local groups' rows g::G are decoded, group by group
     dl = DataLoader(ds, local_bs * G, shuffle=True, num_workers=args.workers,
@@ -156,7 +158,7 @@ def main(argv=None):
     G = len(targets)
     mesh = make_mesh(world, G, rank)
     space, lat_lookup = space_and_lut(args)
-    batches = make_batches(args, mesh)
+    batches = make_batches(args, mesh, device)
     run_dir = [setup_experiment(args.save, 'pareto-search', args.note)
                if rank == 0 else None]
     if rank:
@@ -166,7 +168,7 @@ def main(argv=None):
     run_dir = run_dir[0]
     logging.info("args = %s", args)
     if not args.synthetic:
-        logging.info("image decode: %s", image_decoder())
+        logging.info("image decode: %s", image_decoder(device))
     logging.info("rank %d of %d on %s: groups %s of %d, %d data ranks "
                  "each; targets %s", rank, world, device, mesh.local_groups,
                  G, mesh.data_size, targets)
