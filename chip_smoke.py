@@ -136,9 +136,10 @@ Phases, each printing one JSON line as soon as it ends:
    24 train and 8 val images each, 256-352 px); the card image pipeline on
    it (`phase_decode`, decode lines): nvJPEG's pixels against PIL's (mean
    and max |diff| per image of a batch of 32), the augment kernel against
-   its plain version on that batch, train with the driver's draws and val,
-   at 224^2 (uint8 within one level, the unequal share; ms, device ms,
-   plain ms, bound), and the loader's images/s on the card pipeline at
+   its plain version on that batch and on 256 images (the batch repeated),
+   train with the driver's draws and val, at 224^2 (uint8 within one
+   level, the unequal share, one kernel launch a call; ms, device ms, host
+   ms, plain ms, bound), and the loader's images/s on the card pipeline at
    batch 32 and 256 beside PIL's at 32; then the set searched by
    `train_search` from CUDA graphs (one warmup and one search epoch of 4
    batches, full width), decoded and augmented on the card, whose log
@@ -2427,11 +2428,12 @@ SPIN_S = 0.2  # the spin kernel that holds the stream while calls are queued
 
 def _queued_ms(torch, fn, calls=5):
     """Device ms per call of fn's work on the current stream (for the
-    augment: its 3 KB argument copy and its two kernels), from CUDA events
-    around `calls` calls queued behind a SPIN_S spin kernel, so that they
-    run back to back whatever the host's time per call. The torch.profiler
-    recorded none of this library's kernels late in the smoke's process,
-    though it did alone, so the smoke times them with events."""
+    augment: its one kernel launch per call of up to 256 images, whose
+    arguments travel in the launch), from CUDA events around `calls` calls
+    queued behind a SPIN_S spin kernel, so that they run back to back
+    whatever the host's time per call. The torch.profiler recorded none of
+    this library's kernels late in the smoke's process, though it did
+    alone, so the smoke times them with events."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -2450,17 +2452,75 @@ def _queued_ms(torch, fn, calls=5):
     return start.elapsed_time(end) / calls
 
 
+def _host_ms(torch, fn, calls=20):
+    """Host ms per call of fn: the clock around `calls` calls, enqueue
+    only (the queue is empty when they start)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e3 * dt / calls
+
+
+def _augment_check(torch, card, images, size, draws):
+    """The augment kernel against its plain version on `images` (train with
+    `draws` = boxes, flips, orders, factors; and val): uint8 max error and
+    unequal share, a rerun bit for bit, the kernel launches of one call,
+    ms, device ms, host ms per call, plain ms and the bound. Returns
+    {"train": ..., "val": ...}."""
+    boxes, flips, orders, factors = draws
+    rec = {}
+    for mode in ("train", "val"):
+        if mode == "train":
+            def kernel():
+                return card.augment_train(images, boxes, size, flips,
+                                          orders, factors)
+
+            def plain():
+                return torch.stack([card.quantize_plain(
+                    card.augment_train_plain(img, boxes[i], size, flips[i],
+                                             orders[i], factors[i]))
+                    for i, img in enumerate(images)])
+            bound = _augment_bound(card, images, size, boxes, orders)
+        else:
+            def kernel():
+                return card.augment_val(images, size)
+
+            def plain():
+                return torch.stack([card.quantize_plain(
+                    card.augment_val_plain(img, size)) for img in images])
+            bound = _augment_bound(card, images, size)
+        got, want = kernel(), plain()
+        d = (got.int() - want.int()).abs()
+        err, share = int(d.max()), float((d > 0).float().mean())
+        before = card.launches["augment_kernels"]
+        same = torch.equal(kernel(), got)
+        rec[mode] = {"max_abs_err": err, "unequal_share": share,
+                     "bit_identical_rerun": same,
+                     "kernel_launches_per_call":
+                         card.launches["augment_kernels"] - before,
+                     "ms": _timed(torch, kernel),
+                     "device_ms": _queued_ms(torch, kernel),
+                     "host_ms": _host_ms(torch, kernel),
+                     "plain_ms": _timed(torch, plain, reps=2),
+                     "bound_ms": bound[0], "bound_by": bound[1]}
+    return rec
+
+
 def phase_decode(torch, card, proxy, tmpdir, n=BATCH):
     """The card pipeline on the proxy set (256-352 px JPEGs): nvJPEG's
     decode of a batch of `n` against PIL's (mean and max |diff| per
     image, and each entry's backend); the augment kernel against its plain
-    version on that batch, train (the driver's draws) and val at 224^2
-    (uint8 within one level, the unequal share), with its ms, device ms,
-    plain ms and bound (device ms from CUDA events, `_queued_ms`); then
-    the loader's images/s on the card pipeline at
-    batch 32 and 256 (the list repeated LIST_REPEATS times, from the page
-    cache) beside PIL's at 32 (4 threads each). Returns the kernel's record
-    for the summary line."""
+    version on that batch and on EVAL_BATCH images (the batch's images and
+    draws repeated), train (the driver's draws) and val at 224^2 (uint8
+    within one level, the unequal share, one kernel launch a call), with
+    its ms, device ms, host ms, plain ms and bound (device ms from CUDA
+    events, `_queued_ms`); then the loader's images/s on the card pipeline
+    at batch 32 and 256 (the list repeated LIST_REPEATS times, from the
+    page cache) beside PIL's at 32 (4 threads each). Returns the kernel's
+    record for the summary line."""
     import io
     import numpy as np
     from PIL import Image
@@ -2505,38 +2565,20 @@ def phase_decode(torch, card, proxy, tmpdir, n=BATCH):
     size = 224
     rec = {"phase": "decode", "step": "augment_kernel", "n": len(images),
            "size": size}
-    for mode in ("train", "val"):
-        if mode == "train":
-            def kernel():
-                return card.augment_train(images, boxes, size, flips,
-                                          orders, factors)
-
-            def plain():
-                return torch.stack([card.quantize_plain(
-                    card.augment_train_plain(img, boxes[i], size, flips[i],
-                                             orders[i], factors[i]))
-                    for i, img in enumerate(images)])
-            bound = _augment_bound(card, images, size, boxes, orders)
-        else:
-            def kernel():
-                return card.augment_val(images, size)
-
-            def plain():
-                return torch.stack([card.quantize_plain(
-                    card.augment_val_plain(img, size)) for img in images])
-            bound = _augment_bound(card, images, size)
-        got, want = kernel(), plain()
-        d = (got.int() - want.int()).abs()
-        err, share = int(d.max()), float((d > 0).float().mean())
-        same = torch.equal(kernel(), got)
-        rec[mode] = {"max_abs_err": err, "unequal_share": share,
-                     "bit_identical_rerun": same,
-                     "ms": _timed(torch, kernel),
-                     "device_ms": _queued_ms(torch, kernel),
-                     "plain_ms": _timed(torch, plain, reps=2),
-                     "bound_ms": bound[0], "bound_by": bound[1]}
-        if err > 1 or share > 1e-3 or not same:
+    rec.update(_augment_check(torch, card, images, size,
+                              (boxes, flips, orders, factors)))
+    # the retrain's batch: the proxy batch's images and draws repeated
+    k = -(-EVAL_BATCH // len(images))
+    rec[f"n{EVAL_BATCH}"] = _augment_check(
+        torch, card, (images * k)[:EVAL_BATCH], size,
+        [(v * k)[:EVAL_BATCH] for v in (boxes, flips, orders, factors)])
+    for r in (rec["train"], rec["val"], rec[f"n{EVAL_BATCH}"]["train"],
+              rec[f"n{EVAL_BATCH}"]["val"]):
+        if (r["max_abs_err"] > 1 or r["unequal_share"] > 1e-3
+                or not r["bit_identical_rerun"]
+                or r["kernel_launches_per_call"] != 1):
             failures.append(rec)
+            break
     emit(rec)
 
     rates = {}
@@ -2893,11 +2935,15 @@ def main():
         "max_abs_err": max(train["max_abs_err"], val["max_abs_err"]),
         "unequal_share": train["unequal_share"],
         "shape": [augment["n"], augment["size"], augment["size"], 3],
+        "kernel_launches_per_call": train["kernel_launches_per_call"],
         "ms": train["ms"], "device_ms": train["device_ms"],
+        "host_ms": train["host_ms"],
         "plain_ms": train["plain_ms"], "bound_ms": train["bound_ms"],
         "bound_by": train["bound_by"], "library_ms": None,
         # the val transform (short side 256, centre crop), the same kernel
-        "val": val})
+        "val": val,
+        # both at the retrain's batch (the proxy batch repeated)
+        f"n{EVAL_BATCH}": augment[f"n{EVAL_BATCH}"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -17,7 +17,9 @@ the CPU, apply_multi_sampled against two sampled forwards, and the kernel
 at the channel counts they give it (4 * ic, 16 * ic); and the kernel at the
 largest site of each stride at search batches 128 and 256. And the card
 image pipeline (runtime/card.py): the augment kernel against its plain
-version, nvJPEG against PIL, the entries nvJPEG refuses, ImageList on the
+version (sizes whose plan holds and sweeps, unaligned spans, two launches
+in one call, images with and without contrast in one batch), nvJPEG
+against PIL, the entries nvJPEG refuses, ImageList on the
 card, and a card list whose library does not build.
 
 Tolerances: f32 with TF32 off, 2e-4 for y (summation order) and 1e-3 for
@@ -964,8 +966,10 @@ def test_augment_kernel_matches_plain(cuda, order):
     """The augment kernel against its plain version on the card: source
     images from 1 x 1 to 501 x 389 (odd widths), interleaved and planar
     (the decode buffer's layouts), both flips, crop boxes from one pixel to
-    the whole image, at 224 and 37; uint8 within one level on at most 0.1%
-    of the values (the plain contrast mean sums in another order)."""
+    the whole image, at 224 and 37, at 225 (spans not 16-byte aligned) and
+    at 1024 (the plan sweeps and recomputes after contrast); uint8 within
+    one level on at most 0.1% of the values (the plain contrast mean sums
+    in another order); one launch per call."""
     import numpy as np
     from tfnas_tpu_torch.data.transforms import sample_rrc_box, sample_jitter
     from tfnas_tpu_torch.runtime import card
@@ -980,11 +984,13 @@ def test_augment_kernel_matches_plain(cuda, order):
         flips.append(bool(i % 2))
         factors.append(sample_jitter(rng)[1])
     orders = [order] * len(images)
-    for size in (224, 37):
-        before = card.launches["augment"]
+    for size in (224, 37, 225, 1024):
+        before = dict(card.launches)
         got = card.augment_train(images, boxes, size, flips, orders, factors)
         torch.cuda.synchronize()
-        assert card.launches["augment"] == before + 1
+        assert card.launches["augment"] == before["augment"] + 1
+        assert card.launches["augment_kernels"] == \
+            before["augment_kernels"] + 1
         for i, img in enumerate(images):
             want = card.quantize_plain(card.augment_train_plain(
                 img, boxes[i], size, flips[i], order, factors[i]))
@@ -997,6 +1003,50 @@ def test_augment_kernel_matches_plain(cuda, order):
         again = card.augment_train(images, boxes, size, flips, orders,
                                    factors)
         assert torch.equal(again, got)  # the contrast mean: fixed order
+
+
+def test_augment_kernel_two_launches_mixed_contrast(cuda):
+    """300 images in one call (two launches of 256 and 44, one count),
+    then 20 (the smaller parameter block), each batch mixing images with
+    contrast (at any position) and without, sources up to 257 x 263 at
+    64^2 and 225^2: within one level of the plain version on at most 0.1%
+    of the values, val equal, a rerun bit-identical."""
+    import numpy as np
+    from tfnas_tpu_torch.data.transforms import sample_rrc_box, sample_jitter
+    from tfnas_tpu_torch.runtime import card
+    rng = np.random.default_rng(300)
+    for n, size in ((300, 64), (20, 225)):
+        images, boxes, flips, orders, factors = [], [], [], [], []
+        for i in range(n):
+            w, h = int(rng.integers(1, 258)), int(rng.integers(1, 264))
+            pix = torch.from_numpy(rng.integers(0, 256, (h, w, 3), np.uint8))
+            if i % 2:
+                pix = pix.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+            images.append(pix.to(cuda))
+            boxes.append(sample_rrc_box(w, h, rng))
+            flips.append(bool(i % 3 == 1))
+            order, facs = sample_jitter(rng)
+            if i % 3 == 0:
+                order = [op for op in order if op != 1]
+            orders.append(order)
+            factors.append(facs)
+        before = dict(card.launches)
+        got = card.augment_train(images, boxes, size, flips, orders, factors)
+        torch.cuda.synchronize()
+        assert card.launches["augment"] == before["augment"] + 1
+        assert card.launches["augment_kernels"] == \
+            before["augment_kernels"] + -(-n // card.LAUNCH_IMAGES)
+        for i, img in enumerate(images):
+            want = card.quantize_plain(card.augment_train_plain(
+                img, boxes[i], size, flips[i], orders[i], factors[i]))
+            err, share = _unequal(got[i], want)
+            assert err <= 1 and share <= 1e-3, (n, i, err, share)
+        val = card.augment_val(images, size)
+        for i, img in enumerate(images):
+            want = card.quantize_plain(card.augment_val_plain(img, size))
+            assert _unequal(val[i], want)[0] == 0, (n, i)
+        assert torch.equal(card.augment_train(images, boxes, size, flips,
+                                              orders, factors), got)
 
 
 def test_nvjpeg_against_pil(cuda, capsys):

@@ -33,12 +33,9 @@
 // scaled to [0, 1]; train then applies up to 4 jitter ops in the image's
 // own order with no clip between them, clips to [0, 1], and quantises
 // round-half-away (std::lround). Contrast needs the mean gray of the image
-// at that point: the `stats` pass recomputes each pixel up to the contrast
-// op and sums its gray in f64 per block of rows (a fixed-order tree), and
-// the `write` pass adds those partials in row order, so the mean is the
-// same on every run. Every f32 operation is written with an explicit
-// rounding intrinsic, so nvcc contracts nothing into an FMA: the kernel
-// does the arithmetic of the plain version (runtime/card.py) operation for
+// at that point. Every f32 operation is written with an explicit rounding
+// intrinsic, so nvcc contracts nothing into an FMA: the kernel does the
+// arithmetic of the plain version (runtime/card.py) operation for
 // operation. (g++ -O3 -march=native may contract the host pipeline's
 // multiply-adds: against it the result is within one uint8 level.)
 //
@@ -46,11 +43,37 @@
 // write n * S * S * 3 bytes: for 32 images at 224^2 about 4.8 MB out plus
 // the boxes (up to the decoded images, ~15 MB for 400-500 px JPEGs), a few
 // microseconds at 3.35 TB/s. Its math (~100 f32 operations a pixel with
-// the hue op) is under a microsecond at the card's f32 rate. Design: one
-// block of 256 threads per (image, tile of `rows` output rows), about 1024
-// pixels a block, so a batch of 32 at 224^2 is 1792 blocks over 132 SMs;
-// the source rows a tile samples stay in L1 / L2 across its threads.
+// the hue op) is under a microsecond at the card's f32 rate.
+//
+// Design (Hopper, sm_90a): one launch per batch of up to 256 images, their
+// ImageArgs in the launch's own parameters (__grid_constant__; CUDA 12.1
+// takes 32,764 bytes of them), so a call copies nothing to the card first;
+// a larger batch takes one launch per 256. Each image is one thread-block
+// cluster of C <= 8 blocks (runtime/card.py `plan`: at 224^2, 8 blocks of
+// 28 rows, 896 threads, 7 pixels a thread: 61 registers, one block and 28
+// warps an SM; 448 threads holding 14 pixels took 108 registers, 14 warps
+// an SM, and 1.4x the time, PERF.md). A block first computes its
+// rows' and columns' bilinear taps once (the sample step, the crop box,
+// the flip: no per-pixel division); its threads are laid out as warps of
+// 32 consecutive output columns, so a warp's source reads share cache
+// lines, read through the read-only path. Where the plan holds (S up to
+// ~256), each thread samples its pixels once into registers and applies
+// the ops to them in the image's order; contrast reduces the gray of what
+// the cluster holds in a fixed order: each thread's f64 sum, a shuffle
+// tree per warp, a tree over the block's warps, cluster.sync(), and the
+// cluster's block sums read through distributed shared memory in rank
+// order, so every block gets the same mean on every run (an image without
+// contrast skips the barrier: a cluster is one image, so the branch is
+// uniform). The block quantises into a shared-memory copy of its output
+// rows, which are contiguous in [n, S, S, 3], and writes them with one bulk
+// copy (cp.async.bulk, TMA's 1-D form) where the span's start and length
+// are multiples of 16 bytes, else with 16-byte stores and byte stores at
+// the ragged ends. Larger images sweep: a first pass sums the gray before
+// contrast, and after the cluster's barrier the same launch recomputes the
+// pixels tile by tile into two staging buffers. Val is the same kernel
+// without ops and reduction.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <library_types.h>
@@ -60,6 +83,8 @@
 #include <cstring>
 #include <mutex>
 #include <vector>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -149,8 +174,13 @@ nvjpegImage_t destination(unsigned long long dst, int w, int h, int planar) {
 
 // ---- the augment kernel ------------------------------------------------
 
-constexpr int THREADS = 256;
 constexpr int MODE_TRAIN = 0, MODE_VAL = 1;
+constexpr int LANES = 32;          // a warp: 32 consecutive output columns
+constexpr int MAX_WARPS = 32;      // 1024 threads a block
+constexpr int MAX_CLUSTER = 8;     // the portable cluster size
+constexpr int HOLD = 8;            // pixels a thread holds in registers
+constexpr int LAUNCH_IMAGES = 256; // images whose arguments one launch takes
+constexpr int SMEM_PER_BLOCK = 232448;
 
 // One image's arguments; runtime/card.py `IMAGE_ARGS` is the same layout.
 struct ImageArgs {
@@ -167,6 +197,49 @@ struct ImageArgs {
   float factors[4];          // by op id
 };
 static_assert(sizeof(ImageArgs) == 104, "ImageArgs layout");
+
+// A launch's decomposition: runtime/card.py `plan`, field for field.
+struct Plan {
+  int size, mode;
+  int clusters;   // blocks per image, one cluster: each owns `rows` rows
+  int rows;
+  int warps;      // threads = 32 warps; warp w takes rows w, w + warps, ..
+  int kx, ky;     // column groups of 32 and row passes of a thread
+  int hold;       // 1: a thread's kx * ky <= HOLD pixels stay in registers
+  int tile_rows;  // rows staged in shared memory per store
+  int buffers;    // staging buffers (2 where a block stores several tiles)
+  int smem;       // dynamic shared memory bytes
+};
+
+// The kernel's parameters: the batch's arguments travel in the launch
+// (__grid_constant__, up to 32,764 bytes from CUDA 12.1), not in a copy.
+struct Launch {
+  Plan p;
+  unsigned long long out;  // uint8 [n, S, S, 3] of the launch's image 0
+  ImageArgs img[LAUNCH_IMAGES];
+};
+static_assert(sizeof(Launch) <= 32764, "kernel parameters");
+
+// Per output row / column of a block: the source offsets of the two
+// bilinear taps and the weight (the same rounded values the per-pixel
+// arithmetic gave: each is computed once, with the same operations).
+struct Row {
+  long long r0, r1;
+  float fy;
+};
+struct Col {
+  int c0, c1;
+  float fx;
+};
+
+__host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
+__host__ __device__ constexpr int table_bytes(int rows, int size) {
+  return align16(rows * (int)sizeof(Row) + size * (int)sizeof(Col));
+}
+// a staging buffer: the span at offset (its global address mod 16)
+__host__ __device__ constexpr int stage_bytes(int tile_rows, int size) {
+  return align16(3 * size * tile_rows) + 16;
+}
 
 __device__ __forceinline__ float add(float a, float b) {
   return __fadd_rn(a, b);
@@ -185,39 +258,64 @@ __device__ __forceinline__ float gray(const float* p) {
   return add(add(mul(0.299f, p[0]), mul(0.587f, p[1])), mul(0.114f, p[2]));
 }
 
-// The [0, 1] RGB sample for output pixel (oy, ox) before the flip
-// (image_pipeline.cpp bilinear / resize_crop / tfnas_augment_val).
-__device__ void sample(const ImageArgs& a, int mode, int oy, int ox,
-                       float* rgb) {
+// The block's row and column taps (image_pipeline.cpp bilinear /
+// resize_crop / tfnas_augment_val): the sample step once, train's crop box
+// and flip, val's centre crop, edge clamping.
+__device__ void tables(const ImageArgs& a, bool train, int size, int y0,
+                       int nr, Row* rows, Col* cols) {
   const float scx = dv((float)a.num_x, (float)a.den_x);
   const float scy = dv((float)a.num_y, (float)a.den_y);
-  float sx, sy;
-  if (mode == MODE_TRAIN) {
-    sx = sub(add((float)a.ox, mul((float)ox + 0.5f, scx)), 0.5f);
-    sy = sub(add((float)a.oy, mul((float)oy + 0.5f, scy)), 0.5f);
-  } else {
-    sx = sub(mul(add((float)(a.ox + ox), 0.5f), scx), 0.5f);
-    sy = sub(mul(add((float)(a.oy + oy), 0.5f), scy), 0.5f);
+  const bool flip = train && a.flip;
+  for (int c = threadIdx.x; c < size; c += blockDim.x) {
+    const int ox = flip ? size - 1 - c : c;
+    float sx = train ? sub(add((float)a.ox, mul(add((float)ox, 0.5f), scx)),
+                           0.5f)
+                     : sub(mul(add((float)(a.ox + ox), 0.5f), scx), 0.5f);
+    sx = fminf(fmaxf(sx, 0.0f), (float)(a.w - 1));
+    const int x0 = (int)sx, x1 = min(x0 + 1, a.w - 1);
+    cols[c] = Col{(int)(x0 * a.col), (int)(x1 * a.col), sub(sx, (float)x0)};
   }
-  sx = fminf(fmaxf(sx, 0.0f), (float)(a.w - 1));
-  sy = fminf(fmaxf(sy, 0.0f), (float)(a.h - 1));
-  const int x0 = (int)sx, y0 = (int)sy;
-  const int x1 = min(x0 + 1, a.w - 1), y1 = min(y0 + 1, a.h - 1);
-  const float fx = sub(sx, (float)x0), fy = sub(sy, (float)y0);
-  const uint8_t* s = reinterpret_cast<const uint8_t*>(a.src);
-  const long long r0 = y0 * a.row, r1 = y1 * a.row;
-  const long long c0 = x0 * a.col, c1 = x1 * a.col;
-  for (int c = 0; c < 3; ++c) {
-    const long long k = c * a.chan;
-    const int p00 = s[r0 + c0 + k], p01 = s[r0 + c1 + k];
-    const int p10 = s[r1 + c0 + k], p11 = s[r1 + c1 + k];
-    const float top = add((float)p00, mul((float)(p01 - p00), fx));
-    const float bot = add((float)p10, mul((float)(p11 - p10), fx));
-    rgb[c] = mul(add(top, mul(sub(bot, top), fy)), 1.0f / 255.0f);
+  for (int r = threadIdx.x; r < nr; r += blockDim.x) {
+    const int oy = y0 + r;
+    float sy = train ? sub(add((float)a.oy, mul(add((float)oy, 0.5f), scy)),
+                           0.5f)
+                     : sub(mul(add((float)(a.oy + oy), 0.5f), scy), 0.5f);
+    sy = fminf(fmaxf(sy, 0.0f), (float)(a.h - 1));
+    const int t0 = (int)sy, t1 = min(t0 + 1, a.h - 1);
+    rows[r] = Row{t0 * a.row, t1 * a.row, sub(sy, (float)t0)};
   }
 }
 
-__device__ void hue(float* p, float shift) {
+// The [0, 1] RGB bilinear sample at one (row, column) of the tables,
+// through the read-only path.
+__device__ __forceinline__ void sample(const uint8_t* s, long long chan,
+                                       const Row& r, const Col& c,
+                                       float* rgb) {
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const long long k = ch * chan;
+    const int p00 = __ldg(s + r.r0 + c.c0 + k);
+    const int p01 = __ldg(s + r.r0 + c.c1 + k);
+    const int p10 = __ldg(s + r.r1 + c.c0 + k);
+    const int p11 = __ldg(s + r.r1 + c.c1 + k);
+    const float top = add((float)p00, mul((float)(p01 - p00), c.fx));
+    const float bot = add((float)p10, mul((float)(p11 - p10), c.fx));
+    rgb[ch] = mul(add(top, mul(sub(bot, top), r.fy)), 1.0f / 255.0f);
+  }
+}
+
+__device__ __forceinline__ void brightness(float* p, float f) {
+  for (int c = 0; c < 3; ++c) p[c] = mul(p[c], f);
+}
+__device__ __forceinline__ void contrast(float* p, float f, float mean) {
+  for (int c = 0; c < 3; ++c) p[c] = add(mul(sub(p[c], mean), f), mean);
+}
+__device__ __forceinline__ void saturation(float* p, float f) {
+  const float g = gray(p);
+  for (int c = 0; c < 3; ++c) p[c] = add(mul(sub(p[c], g), f), g);
+}
+
+__device__ __forceinline__ void hue(float* p, float shift) {
   const float r = p[0], g = p[1], b = p[2];
   const float maxc = fmaxf(r, fmaxf(g, b));
   const float minc = fminf(r, fminf(g, b));
@@ -249,16 +347,17 @@ __device__ void hue(float* p, float shift) {
 }
 
 __device__ void jitter(int op, float f, float mean, float* p) {
-  if (op == 0) {
-    for (int c = 0; c < 3; ++c) p[c] = mul(p[c], f);
-  } else if (op == 1) {
-    for (int c = 0; c < 3; ++c) p[c] = add(mul(sub(p[c], mean), f), mean);
-  } else if (op == 2) {
-    const float g = gray(p);
-    for (int c = 0; c < 3; ++c) p[c] = add(mul(sub(p[c], g), f), g);
-  } else {
-    hue(p, f);
-  }
+  if (op == 0) brightness(p, f);
+  else if (op == 1) contrast(p, f, mean);
+  else if (op == 2) saturation(p, f);
+  else hue(p, f);
+}
+
+// The image's ops at positions [from, to) of its order.
+__device__ __forceinline__ void ops(const ImageArgs& a, int from, int to,
+                                    float mean, float* p) {
+  for (int i = from; i < to && a.order[i] >= 0; ++i)
+    jitter(a.order[i], a.factors[a.order[i]], mean, p);
 }
 
 // Position of contrast in the image's order, or 4 where it has none.
@@ -268,67 +367,236 @@ __device__ int contrast_at(const ImageArgs& a) {
   return 4;
 }
 
-// partial[i * tiles + t]: the f64 sum of the gray of image i's pixels in
-// tile t just before its contrast op.
-__global__ void __launch_bounds__(THREADS)
-    augment_stats(const ImageArgs* args, int size, int rows, int tiles,
-                  double* partial) {
-  const ImageArgs a = args[blockIdx.y];
-  const int at = contrast_at(a);
-  if (at == 4) return;
-  const int y0 = blockIdx.x * rows, y1 = min(size, y0 + rows);
-  double acc = 0.0;
-  for (int p = threadIdx.x; p < (y1 - y0) * size; p += THREADS) {
-    const int oy = y0 + p / size, ox = p % size;
-    float px[3];
-    sample(a, MODE_TRAIN, oy, ox, px);
-    for (int i = 0; i < at; ++i)
-      jitter(a.order[i], a.factors[a.order[i]], 0.0f, px);
-    acc += (double)gray(px);
-  }
-  __shared__ double red[THREADS];
-  red[threadIdx.x] = acc;
-  __syncthreads();
-  for (int s = THREADS / 2; s > 0; s >>= 1) {  // fixed order
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) partial[(size_t)blockIdx.y * tiles + blockIdx.x] =
-      red[0];
+__device__ __forceinline__ void put(unsigned char* d, const float* p) {
+  for (int c = 0; c < 3; ++c)
+    d[c] = (uint8_t)roundf(fminf(fmaxf(mul(p[c], 255.0f), 0.0f), 255.0f));
 }
 
-__global__ void __launch_bounds__(THREADS)
-    augment_write(const ImageArgs* args, int mode, int size, int rows,
-                  int tiles, const double* partial, uint8_t* out) {
-  const ImageArgs a = args[blockIdx.y];
+__device__ __forceinline__ void clip(float* p) {
+  for (int c = 0; c < 3; ++c) p[c] = fminf(fmaxf(p[c], 0.0f), 1.0f);
+}
+
+// f(px[k]) for each pixel k a thread holds (fully unrolled: the array
+// stays in registers).
+template <typename F>
+__device__ __forceinline__ void each(float (&px)[HOLD][3], unsigned held,
+                                     F f) {
+#pragma unroll
+  for (int k = 0; k < HOLD; ++k)
+    if (held >> k & 1) f(px[k]);
+}
+
+// The image's mean gray from each thread's f64 sum `acc`, in a fixed
+// order: each warp's shuffle tree, the block's warps in a second tree,
+// cluster.sync(), then the cluster's block sums in rank order through
+// distributed shared memory. Every block of the cluster gets the same
+// value on every run. The caller ends with cluster_wait(): a block's sum
+// must outlive the other blocks' reads.
+__device__ float cluster_mean(double acc, int size, int clusters,
+                              int warps) {
+  __shared__ double warp_sum[MAX_WARPS];
+  __shared__ double block_sum;
   __shared__ float mean_s;
-  const bool train = mode == MODE_TRAIN;
-  if (train && contrast_at(a) < 4) {
-    if (threadIdx.x == 0) {
-      double m = 0.0;
-      for (int t = 0; t < tiles; ++t)  // row order: deterministic
-        m += partial[(size_t)blockIdx.y * tiles + t];
-      mean_s = (float)(m / ((double)size * size));
-    }
+  const int lane = threadIdx.x % LANES, warp = threadIdx.x / LANES;
+  for (int o = LANES / 2; o > 0; o >>= 1)
+    acc += __shfl_down_sync(0xffffffffu, acc, o);
+  if (lane == 0) warp_sum[warp] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    double v = lane < warps ? warp_sum[lane] : 0.0;
+    for (int o = LANES / 2; o > 0; o >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) block_sum = v;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (threadIdx.x == 0) {
+    double m = 0.0;
+    for (int r = 0; r < clusters; ++r)
+      m += *cluster.map_shared_rank(&block_sum, r);
+    mean_s = (float)(m / ((double)size * size));
+  }
+  __syncthreads();
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  return mean_s;
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all_but_one() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
+
+// Write the block's contiguous span of `len` output bytes, staged at
+// buf + (dst mod 16): one bulk copy (TMA's 1-D form) where its start and
+// length are multiples of 16 bytes, else 16-byte stores with byte stores
+// at the ragged ends. Thread 0 owns the bulk group; a caller that reuses
+// `buf` first waits for its reads.
+__device__ void store_span(const unsigned char* buf, uint8_t* dst, int len) {
+  const int mis = (int)(reinterpret_cast<uintptr_t>(dst) & 15);
+  if (mis == 0 && (len & 15) == 0) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-  }
-  const int y0 = blockIdx.x * rows, y1 = min(size, y0 + rows);
-  uint8_t* img = out + (size_t)blockIdx.y * size * size * 3;
-  for (int p = threadIdx.x; p < (y1 - y0) * size; p += THREADS) {
-    const int oy = y0 + p / size, tx = p % size;
-    const int ox = (train && a.flip) ? size - 1 - tx : tx;
-    float px[3];
-    sample(a, mode, oy, ox, px);
-    if (train) {
-      for (int i = 0; i < 4 && a.order[i] >= 0; ++i)
-        jitter(a.order[i], a.factors[a.order[i]], mean_s, px);
-      for (int c = 0; c < 3; ++c) px[c] = fminf(fmaxf(px[c], 0.0f), 1.0f);
+    if (threadIdx.x == 0) {
+      const unsigned s = (unsigned)__cvta_generic_to_shared(buf);
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+          :: "l"(dst), "r"(s), "r"(len) : "memory");
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
-    uint8_t* dst = img + ((size_t)oy * size + tx) * 3;
-    for (int c = 0; c < 3; ++c)
-      dst[c] = (uint8_t)roundf(fminf(fmaxf(mul(px[c], 255.0f), 0.0f),
-                                     255.0f));
+    return;
   }
+  __syncthreads();
+  const unsigned char* s = buf + mis;
+  const int head = min(len, (16 - mis) & 15), body = (len - head) / 16;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = s[i];
+  const uint4* sv = reinterpret_cast<const uint4*>(s + head);
+  uint4* gv = reinterpret_cast<uint4*>(dst + head);
+  for (int i = threadIdx.x; i < body; i += blockDim.x) gv[i] = sv[i];
+  for (int i = head + 16 * body + threadIdx.x; i < len; i += blockDim.x)
+    dst[i] = s[i];
+}
+
+// One cluster of p.clusters blocks per image (blockIdx.y), block rank r
+// owning output rows [r * rows, (r + 1) * rows). Where the plan holds
+// (p.hold), each thread samples its pixels once into registers, applies
+// the image's ops in its order (contrast: the cluster's mean of what it
+// holds), clips, quantises into the staged span and the block stores it.
+// Else a sweep: a first pass sums the gray before contrast (when the
+// image has it), then the pixels are recomputed tile by tile, staged and
+// stored, double-buffered.
+__global__ void __launch_bounds__(LANES * MAX_WARPS, 1)
+    augment_batch(const __grid_constant__ Launch L) {
+  const Plan& p = L.p;
+  const ImageArgs& a = L.img[blockIdx.y];
+  const int size = p.size, lane = threadIdx.x % LANES;
+  const int warp = threadIdx.x / LANES;
+  const int y0 = blockIdx.x * p.rows, nr = min(p.rows, size - y0);
+  const bool train = p.mode == MODE_TRAIN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Row* rows = reinterpret_cast<Row*>(smem);
+  Col* cols = reinterpret_cast<Col*>(smem + p.rows * sizeof(Row));
+  unsigned char* stage = smem + table_bytes(p.rows, size);
+  uint8_t* out = reinterpret_cast<uint8_t*>(L.out) +
+                 ((size_t)blockIdx.y * size + y0) * size * 3;
+  const uint8_t* src = reinterpret_cast<const uint8_t*>(a.src);
+  tables(a, train, size, y0, nr, rows, cols);
+  __syncthreads();
+  const int at = train ? contrast_at(a) : 4;
+  if (p.hold) {
+    float px[HOLD][3];
+    unsigned held = 0;
+    {
+      int i = 0, j = 0;
+#pragma unroll
+      for (int k = 0; k < HOLD; ++k) {
+        const int r = warp + p.warps * j, c = lane + LANES * i;
+        if (j < p.ky && r < nr && c < size) {
+          held |= 1u << k;
+          sample(src, a.chan, rows[r], cols[c], px[k]);
+        }
+        if (++i == p.kx) {
+          i = 0;
+          ++j;
+        }
+      }
+    }
+    if (train) {
+      for (int o = 0; o < 4 && a.order[o] >= 0; ++o) {
+        const int op = a.order[o];
+        const float f = a.factors[op];
+        if (op == 0) {
+          each(px, held, [&](float* q) { brightness(q, f); });
+        } else if (op == 1) {
+          double acc = 0.0;
+          each(px, held, [&](float* q) { acc += (double)gray(q); });
+          const float m = cluster_mean(acc, size, p.clusters, p.warps);
+          each(px, held, [&](float* q) { contrast(q, f, m); });
+        } else if (op == 2) {
+          each(px, held, [&](float* q) { saturation(q, f); });
+        } else {
+          each(px, held, [&](float* q) { hue(q, f); });
+        }
+      }
+      each(px, held, [&](float* q) { clip(q); });
+    }
+    unsigned char* buf = stage + (reinterpret_cast<uintptr_t>(out) & 15);
+    {
+      int i = 0, j = 0;
+#pragma unroll
+      for (int k = 0; k < HOLD; ++k) {
+        const int r = warp + p.warps * j, c = lane + LANES * i;
+        if (held >> k & 1) put(buf + ((size_t)r * size + c) * 3, px[k]);
+        if (++i == p.kx) {
+          i = 0;
+          ++j;
+        }
+      }
+    }
+    store_span(stage, out, nr * size * 3);
+  } else {
+    float m = 0.0f;
+    if (at < 4) {
+      double acc = 0.0;
+      for (int r = warp; r < nr; r += p.warps)
+        for (int c = lane; c < size; c += LANES) {
+          float q[3];
+          sample(src, a.chan, rows[r], cols[c], q);
+          ops(a, 0, at, 0.0f, q);
+          acc += (double)gray(q);
+        }
+      m = cluster_mean(acc, size, p.clusters, p.warps);
+    }
+    const int span = stage_bytes(p.tile_rows, size);
+    for (int t = 0; t * p.tile_rows < nr; ++t) {
+      const int r0 = t * p.tile_rows, r1 = min(nr, r0 + p.tile_rows);
+      unsigned char* base = stage + (t % p.buffers) * span;
+      uint8_t* dst = out + (size_t)r0 * size * 3;
+      if (t >= p.buffers) {  // this buffer's store has read it
+        if (threadIdx.x == 0) bulk_wait_all_but_one();
+        __syncthreads();
+      }
+      unsigned char* buf = base + (reinterpret_cast<uintptr_t>(dst) & 15);
+      for (int r = r0 + warp; r < r1; r += p.warps)
+        for (int c = lane; c < size; c += LANES) {
+          float q[3];
+          sample(src, a.chan, rows[r], cols[c], q);
+          if (train) {
+            ops(a, 0, 4, m, q);
+            clip(q);
+          }
+          put(buf + ((size_t)(r - r0) * size + c) * 3, q);
+        }
+      store_span(base, dst, (r1 - r0) * size * 3);
+    }
+  }
+  if (threadIdx.x == 0) bulk_wait_all();
+  if (at < 4) cluster_wait();
+}
+
+// The plan's checks (runtime/card.py `plan` makes it): every row covered
+// once, at most MAX_CLUSTER blocks and MAX_WARPS warps, held pixels within
+// HOLD, the staging and shared memory as the kernel lays them out.
+bool plan_ok(const Plan& p) {
+  const int s = p.size;
+  if (s < 1 || (p.mode != MODE_TRAIN && p.mode != MODE_VAL) ||
+      p.clusters < 1 || p.clusters > MAX_CLUSTER || p.rows < 1 ||
+      p.clusters * p.rows < s || (p.clusters - 1) * p.rows >= s ||
+      p.warps < 1 || p.warps > MAX_WARPS || p.kx != (s + LANES - 1) / LANES ||
+      p.tile_rows < 1 || p.tile_rows > p.rows || p.buffers < 1 ||
+      p.buffers > 2 || (p.tile_rows < p.rows && p.buffers != 2))
+    return false;
+  if (p.hold && (p.kx * p.ky > HOLD || p.ky < 1 || p.warps * p.ky < p.rows ||
+                 p.tile_rows != p.rows))
+    return false;
+  const int smem = table_bytes(p.rows, s) +
+                   p.buffers * stage_bytes(p.tile_rows, s);
+  return p.smem == smem && smem <= SMEM_PER_BLOCK;
 }
 
 }  // namespace
@@ -526,28 +794,44 @@ int tfnas_card_decode(void* worker, const uint8_t* const* datas,
   return (int)cudaGetLastError();
 }
 
-// args: n ImageArgs on the card; mode 0 train, 1 val; out: [n, size, size,
-// 3] uint8; partial: [n, tiles] f64 scratch, tiles = ceil(size / rows).
-// Returns the CUDA error of the launches.
-int tfnas_augment(const void* args, int n, int mode, int size, int rows,
-                  void* partial, void* out, void* stream) {
-  if (n < 1 || size < 1 || rows < 1 || n > 65535 ||
-      (mode != MODE_TRAIN && mode != MODE_VAL))
+// args: n <= LAUNCH_IMAGES ImageArgs in host memory (they travel in the
+// launch's parameters); plan: runtime/card.py `plan` as 11 ints (Plan's
+// fields); out: [n, size, size, 3] uint8 on the card. One launch. Returns
+// its CUDA error (cudaErrorInvalidValue for a plan the kernel does not
+// take, whatever refuses the cluster launch otherwise); nothing falls back.
+int tfnas_augment(const void* args, int n, const int* plan, void* out,
+                  void* stream) {
+  static_assert(sizeof(Plan) == 11 * sizeof(int), "Plan layout");
+  static Launch params;  // 26 KB: not on the caller's stack
+  static std::mutex mu;
+  Plan p;
+  std::memcpy(&p, plan, sizeof(Plan));
+  if (n < 1 || n > LAUNCH_IMAGES || !plan_ok(p))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = (size + rows - 1) / rows;
-  const dim3 grid(tiles, n);
-  const ImageArgs* a = static_cast<const ImageArgs*>(args);
-  if (mode == MODE_TRAIN) {
-    augment_stats<<<grid, THREADS, 0, st>>>(a, size, rows, tiles,
-                                            static_cast<double*>(partial));
-    const cudaError_t e = cudaGetLastError();
+  std::lock_guard<std::mutex> guard(mu);
+  params.p = p;
+  params.out = reinterpret_cast<unsigned long long>(out);
+  std::memcpy(params.img, args, (size_t)n * sizeof(ImageArgs));
+  if (p.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        augment_batch, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (e != cudaSuccess) return (int)e;
   }
-  augment_write<<<grid, THREADS, 0, st>>>(
-      a, mode, size, rows, tiles, static_cast<const double*>(partial),
-      static_cast<uint8_t*>(out));
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.clusters, n, 1);
+  cfg.blockDim = dim3(LANES * p.warps, 1, 1);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.clusters;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, augment_batch, params);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return (int)e;
 }
 
 }  // extern "C"

@@ -12,8 +12,9 @@ kernel) -> uint8 [n, S, S, 3] on the card. Entries nvJPEG refuses (not a
 JPEG, CMYK, truncated) come back with a non-zero status; the caller's
 host decode (PIL) gives their pixels, which are uploaded and go through
 the same kernel. Each DataLoader thread borrows a worker: its own nvJPEG
-decode states and CUDA stream (the only stream it synchronises); small
-host-to-card copies go through torch's pinned-memory cache.
+decode states and CUDA stream (the only stream it synchronises). The
+augment's per-image arguments travel in its launch's parameters: a call
+copies nothing to the card before it.
 
 The library is built with nvcc at first use into `build/tfnas_tpu_torch/`
 (kernels/nvcc.py) and loads nvJPEG from the CUDA toolkit with dlopen.
@@ -23,16 +24,21 @@ versions `augment_train_plain` / `augment_val_plain` + `quantize_plain`,
 the same arithmetic operation by operation; the CPU tests hold those
 against the JAX package's C++ augment, and the card tests and
 chip_smoke.py hold the kernel against them. `launches["augment"]` counts
-the kernel's launches (a stats and a write pass each).
+the wrapper's calls that launch the kernel: one launch per call of up to
+LAUNCH_IMAGES images (a larger batch, one per LAUNCH_IMAGES). `plan` is
+the kernel's decomposition of a call; the kernel checks it and lays out
+its work and shared memory the same way.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import itertools
 import math
 import subprocess
 import threading
+from collections import namedtuple
 from pathlib import Path
 
 import numpy as np
@@ -45,8 +51,16 @@ NVCC_FLAGS = nvcc.SM90A_FLAGS
 LIBS = ("-ldl",)
 MODE_TRAIN, MODE_VAL = 0, 1
 VAL_RESIZE = 256          # the val transform's short side
-PIXELS_PER_BLOCK = 1024   # output pixels of one kernel block (256 threads)
 ALIGN = 256               # bytes: each decoded image's start in the buffer
+# csrc/image_decode.cu's constants of the augment kernel
+LANES = 32                # a warp: 32 consecutive output columns
+MAX_WARPS = 32            # 1024 threads a block
+MAX_CLUSTER = 8           # blocks of one image's cluster (portable size)
+HOLD = 8                  # pixels a thread holds in registers
+LAUNCH_IMAGES = 256       # images whose arguments travel in one launch
+TILE_BYTES = 64 << 10     # a sweep's staging buffer, at most
+SMEM_PER_BLOCK = 232_448  # the H100's shared memory for one block
+ROW_BYTES, COL_BYTES = 24, 12   # sizeof(Row), sizeof(Col)
 BACKENDS = ("hardware", "default")
 # csrc/image_decode.cu `ImageArgs`, field for field
 IMAGE_ARGS = np.dtype([
@@ -56,8 +70,10 @@ IMAGE_ARGS = np.dtype([
     ("flip", "<i4"), ("order", "<i4", (4,)), ("factors", "<f4", (4,))],
     align=True)
 
-# kernel launches since import (or the last reset); plain calls do not count
-launches = {"augment": 0}
+# since import (or the last reset): "augment", the wrapper's calls that
+# launched the kernel; "augment_kernels", its launches (one per
+# LAUNCH_IMAGES images of a call); plain calls count in neither
+launches = {"augment": 0, "augment_kernels": 0}
 # how the loaded library was obtained: {"path", "seconds", "log"}
 build_info = None
 # why the library could not be built, loaded or opened, once that was tried
@@ -70,7 +86,8 @@ _idle = []   # workers not in use
 
 
 def reset_launches():
-    launches["augment"] = 0
+    for key in launches:
+        launches[key] = 0
 
 
 # -- building and opening ------------------------------------------------------
@@ -119,7 +136,7 @@ def _load():
         lib.tfnas_card_worker.argtypes = [ctypes.POINTER(p)]
         lib.tfnas_card_probe.argtypes = [p, p, p, i, p]
         lib.tfnas_card_decode.argtypes = [p, p, p, i, p, p, p, p]
-        lib.tfnas_augment.argtypes = [p, i, i, i, i, p, p, p]
+        lib.tfnas_augment.argtypes = [p, i, p, p, p]
         for fn in (lib.tfnas_card_open, lib.tfnas_card_worker,
                    lib.tfnas_card_probe, lib.tfnas_card_decode,
                    lib.tfnas_augment):
@@ -235,9 +252,62 @@ def image_strides(w, h, planar):
     return (w, 1, w * h) if planar else (3 * w, 3, 1)
 
 
-def rows_per_block(size):
-    """Output rows of one kernel block: about PIXELS_PER_BLOCK pixels."""
-    return max(1, PIXELS_PER_BLOCK // size)
+Plan = namedtuple("Plan", "size clusters rows warps kx ky hold tile_rows "
+                           "buffers smem")
+
+
+def _align16(x):
+    return -(-x // 16) * 16
+
+
+def plan(size):
+    """The augment kernel's decomposition of an S x S output (the same for
+    every image and mode): one cluster of `clusters` blocks per image,
+    block r owning rows [r * rows, (r + 1) * rows) (the last ones fewer);
+    `warps` warps of 32 threads, warp w taking rows w, w + warps, ... and
+    lane l columns l, l + 32, ... (`kx` column groups, `ky` row passes).
+    `hold`: a thread's kx * ky pixels fit in HOLD registers' worth, so it
+    samples each once; else the block sweeps its rows in tiles of
+    `tile_rows` (two staging buffers where there are several), sampling
+    again after contrast's barrier. `smem`: the block's dynamic shared
+    memory (row and column taps, then the staging buffers, each the tile's
+    bytes rounded to 16 plus 16 for the span's offset mod 16). Raises
+    ValueError where a block's shared memory cannot hold one output row."""
+    if size < 1:
+        raise ValueError(f"the augment's output size must be >= 1, got "
+                         f"{size}")
+    rows = -(-size // min(MAX_CLUSTER, size))
+    clusters = -(-size // rows)
+    kx = -(-size // LANES)
+    ky = -(-rows // MAX_WARPS)
+    warps = -(-rows // ky)
+    hold = kx * ky <= HOLD
+    tile_rows = rows
+    if not hold and 3 * size * rows > TILE_BYTES:
+        tile_rows = max(1, TILE_BYTES // (3 * size))
+        if tile_rows >= warps:
+            tile_rows -= tile_rows % warps
+    buffers = 1 if tile_rows == rows else 2
+    smem = (_align16(rows * ROW_BYTES + size * COL_BYTES)
+            + buffers * (_align16(3 * size * tile_rows) + 16))
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"the augment kernel cannot stage an output of "
+                         f"{size} x {size}: {smem} bytes of shared memory")
+    return Plan(size, clusters, rows, warps, kx, ky, int(hold), tile_rows,
+                buffers, smem)
+
+
+def plan_ints(p, mode):
+    """The kernel's `Plan` struct: 11 int32 in its field order."""
+    return np.asarray([p.size, mode, p.clusters, p.rows, p.warps, p.kx,
+                       p.ky, p.hold, p.tile_rows, p.buffers, p.smem],
+                      np.int32)
+
+
+def launch_splits(n):
+    """(first image, count) of each launch of an n-image call."""
+    return [(i, min(LAUNCH_IMAGES, n - i))
+            for i in range(0, n, LAUNCH_IMAGES)]
 
 
 def _lround(x):
@@ -258,69 +328,90 @@ def val_geometry(w, h, size, resize=VAL_RESIZE):
 
 
 def image_args(images, size, boxes=None, flips=None, orders=None,
-               factors=None, resize=VAL_RESIZE):
+               factors=None, resize=VAL_RESIZE, meta=None):
     """The kernel's per-image arguments (IMAGE_ARGS) for uint8 [H, W, 3]
     tensors of any strides: train with `boxes` (x, y, w, h), flips,
-    jitter orders and factors; val without."""
-    a = np.zeros(len(images), IMAGE_ARGS)
-    for i, img in enumerate(images):
-        h, w = img.shape[:2]
-        a[i]["src"] = img.data_ptr()
-        a[i]["row"], a[i]["col"], a[i]["chan"] = img.stride()
-        a[i]["h"], a[i]["w"] = h, w
-        a[i]["order"] = -1
-        if boxes is None:
-            nw, nh, x0, y0 = val_geometry(w, h, size, resize)
-            a[i]["ox"], a[i]["oy"] = x0, y0
-            a[i]["num_x"], a[i]["den_x"] = w, nw
-            a[i]["num_y"], a[i]["den_y"] = h, nh
-        else:
-            cx, cy, cw, ch = (int(v) for v in boxes[i])
-            a[i]["ox"], a[i]["oy"] = cx, cy
-            a[i]["num_x"], a[i]["den_x"] = cw, size
-            a[i]["num_y"], a[i]["den_y"] = ch, size
-            a[i]["flip"] = int(bool(flips[i]))
-            a[i]["order"][:len(orders[i])] = orders[i]
-            a[i]["factors"] = np.asarray(factors[i], np.float32)
+    jitter orders and factors; val without. Filled a column at a time;
+    `meta`: the images' `_image_meta`, where the caller has it."""
+    n = len(images)
+    if meta is None:
+        meta = _image_meta(images)[1]
+    a = np.zeros(n, IMAGE_ARGS)
+    h, w = meta[:, 0], meta[:, 1]
+    a["h"], a["w"] = h, w
+    a["row"], a["col"], a["chan"], a["src"] = meta[:, 3:].T
+    if boxes is None:
+        a["order"] = -1
+        # val_geometry, elementwise: lround of the scaled side, C division
+        wide = w >= h
+        side = np.where(wide, w * resize, h * resize) / np.where(wide, h, w)
+        f = np.floor(side)
+        scaled = (f + (side - f >= 0.5)).astype(np.int64)
+        nw = np.where(wide, scaled, resize)
+        nh = np.where(wide, resize, scaled)
+        a["ox"] = np.trunc((nw - size) / 2).astype(np.int64)
+        a["oy"] = np.trunc((nh - size) / 2).astype(np.int64)
+        a["num_x"], a["den_x"] = w, nw
+        a["num_y"], a["den_y"] = h, nh
+    else:
+        flat = itertools.chain.from_iterable
+        box = np.fromiter(flat(boxes), np.int64, 4 * n).reshape(n, 4)
+        a["ox"], a["oy"], a["num_x"], a["num_y"] = box.T
+        a["den_x"] = a["den_y"] = size
+        a["flip"] = np.fromiter(flips, bool, n)
+        a["order"] = np.fromiter(flat((*o, -1, -1, -1, -1)[:4]
+                                      for o in orders), np.int32,
+                                 4 * n).reshape(n, 4)
+        a["factors"] = np.fromiter(flat(factors), np.float32,
+                                   4 * n).reshape(n, 4)
     return a
 
 
 # -- the kernel and its plain version ------------------------------------------
 
-def _check_images(images):
+def _image_meta(images):
+    """(device, int64 [n, 7]: each image's H, W, C, its three element
+    strides and its address); raises ValueError unless `images` are uint8
+    [H, W, 3] tensors on one device."""
     if not images:
         raise ValueError("the augment needs at least one image")
     dev = images[0].device
-    for img in images:
-        if (img.dtype != torch.uint8 or img.dim() != 3 or img.shape[2] != 3
-                or img.device != dev or img.shape[0] < 1
-                or img.shape[1] < 1):
-            raise ValueError(f"images must be uint8 [H, W, 3] tensors on "
-                             f"one device, got {img.dtype} "
-                             f"{tuple(img.shape)} on {img.device}")
-    return dev
+    try:
+        meta = np.array([(*img.shape, *img.stride(), img.data_ptr())
+                         for img in images], np.int64)
+        ok = (meta.shape[1] == 7 and (meta[:, 2] == 3).all()
+              and (meta[:, :2] >= 1).all())
+    except (ValueError, IndexError):  # a tensor of another rank
+        ok = False
+    if not ok or {(img.dtype, img.device) for img in images} != {
+            (torch.uint8, dev)}:
+        for img in images:  # the first image that is not right
+            if (img.dtype != torch.uint8 or img.dim() != 3
+                    or img.shape[2] != 3 or img.device != dev
+                    or img.shape[0] < 1 or img.shape[1] < 1):
+                raise ValueError(f"images must be uint8 [H, W, 3] tensors "
+                                 f"on one device, got {img.dtype} "
+                                 f"{tuple(img.shape)} on {img.device}")
+    return dev, meta
 
 
 def _launch(images, mode, size, args):
-    n = len(images)
-    if not 1 <= n <= 65535 or size < 1:
-        raise ValueError(f"the kernel takes 1 to 65535 images of size >= 1, "
-                         f"got {n} of {size}")
+    p = plan(size)
     lib = _load()
     dev = images[0].device
-    rows = rows_per_block(size)
-    tiles = -(-size // rows)
-    host = torch.from_numpy(args.view(np.uint8)).pin_memory()
-    dargs = host.to(dev, non_blocking=True)
-    out = torch.empty((n, size, size, 3), dtype=torch.uint8, device=dev)
-    partial = torch.empty((n, tiles), dtype=torch.float64, device=dev)
+    out = torch.empty((len(images), size, size, 3), dtype=torch.uint8,
+                      device=dev)
+    ints = plan_ints(p, mode)
     with torch.cuda.device(dev):
-        rc = lib.tfnas_augment(dargs.data_ptr(), n, mode, size, rows,
-                               partial.data_ptr(), out.data_ptr(),
-                               torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"augment kernel launch failed with CUDA error "
-                           f"{rc}")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for first, count in launch_splits(len(images)):
+            rc = lib.tfnas_augment(args[first:].ctypes.data, count,
+                                   ints.ctypes.data, out[first].data_ptr(),
+                                   stream)
+            if rc != 0:
+                raise RuntimeError(f"augment kernel launch failed with CUDA "
+                                   f"error {rc}")
+            launches["augment_kernels"] += 1
     launches["augment"] += 1
     return out
 
@@ -331,10 +422,10 @@ def augment_train(images, boxes, size, flips, orders, factors):
     x size, flipped, jittered in `orders[i]` with `factors[i]`, clipped and
     quantised. The kernel for CUDA tensors, the plain version for CPU
     tensors."""
-    dev = _check_images(images)
+    dev, meta = _image_meta(images)
     if dev.type == "cuda":
         return _launch(images, MODE_TRAIN, size, image_args(
-            images, size, boxes, flips, orders, factors))
+            images, size, boxes, flips, orders, factors, meta=meta))
     if dev.type == "cpu":
         return torch.stack([quantize_plain(augment_train_plain(
             img, boxes[i], size, flips[i], orders[i], factors[i]))
@@ -346,10 +437,10 @@ def augment_val(images, size, resize=VAL_RESIZE):
     """uint8 [n, size, size, 3]: each image's short side resized to
     `resize`, the centre size x size crop, quantised. The kernel for CUDA
     tensors, the plain version for CPU tensors."""
-    dev = _check_images(images)
+    dev, meta = _image_meta(images)
     if dev.type == "cuda":
         return _launch(images, MODE_VAL, size,
-                       image_args(images, size, resize=resize))
+                       image_args(images, size, resize=resize, meta=meta))
     if dev.type == "cpu":
         return torch.stack([quantize_plain(augment_val_plain(
             img, size, resize)) for img in images])
