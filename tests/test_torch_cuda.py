@@ -20,7 +20,10 @@ image pipeline (runtime/card.py): the augment kernel against its plain
 version (sizes whose plan holds and sweeps, unaligned spans, two launches
 in one call, images with and without contrast in one batch), nvJPEG
 against PIL, the entries nvJPEG refuses, ImageList on the
-card, and a card list whose library does not build.
+card, and a card list whose library does not build. And the port's spans
+(utils/trace.py): a GraphedFn's call, argument, replay and capture spans,
+no device event under a stream capture, and the eager train step's
+phases in a profiled Chrome trace with their device times.
 
 Tolerances: f32 with TF32 off, 2e-4 for y (summation order) and 1e-3 for
 the sums; bf16, 2e-2 (one bf16 rounding of y, 2^-8 relative, either way);
@@ -1168,3 +1171,114 @@ def test_imagelist_on_card_raises_when_the_library_fails(cuda, tmp_path,
     assert "nvcc failed" in card.build_error
     with pytest.raises(RuntimeError, match="nvcc failed"):  # fails fast
         ImageList(root, lst, False, image_size=32, device=cuda)
+
+
+# -- the port's spans (utils/trace.py) ----------------------------------------
+
+@pytest.fixture
+def tracing():
+    from tfnas_tpu_torch.utils import trace
+    trace.reset()
+    trace.enable()
+    yield trace
+    trace.disable()
+    trace.reset()
+
+
+def test_graphed_fn_spans(cuda, tracing):
+    """A GraphedFn's first call holds its capture (whose time is build_s
+    and adds to the process's capture total); every call is
+    tfnas.graph.call around its args and replay, each with the graph's
+    name as its id."""
+    from tfnas_tpu_torch.search import compiled
+    trace = tracing
+    fam = compiled.GraphFamily(cuda)
+    fn = compiled.GraphedFn(fam, lambda x: (x * 2 + 1,), {}, "double")
+    before = dict(compiled.captures)
+    x = torch.arange(8.0, device=cuda)
+    for _ in range(3):
+        out = fn(x)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(out, x * 2 + 1)
+    snap = trace.snapshot()
+    names = [s["name"] for s in snap["spans"]]
+    assert names.count("tfnas.graph.capture") == 1
+    assert names.count("tfnas.graph.call") == 3
+    assert names.count("tfnas.graph.args") == 3
+    assert names.count("tfnas.graph.replay") == 3
+    for s in snap["spans"]:
+        assert s["ids"] == {"graph": "double"}
+        assert s["parent"] == (None if s["name"] == "tfnas.graph.call"
+                               else "tfnas.graph.call")
+    (cap,) = snap["host_ms"]["tfnas.graph.capture"]
+    assert fn.build_s == pytest.approx(cap / 1e3)
+    assert compiled.captures["count"] == before["count"] + 1
+    assert compiled.captures["seconds"] == pytest.approx(
+        before["seconds"] + fn.build_s)
+    assert snap["device_ms"] == {}   # host spans only
+
+
+def test_device_span_records_no_event_under_capture(cuda, tracing):
+    trace = tracing
+    x = torch.ones(1024, device=cuda)
+    with trace.span("tfnas.test.eager", device=True) as eager:
+        y = x * 3
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        with trace.span("tfnas.test.captured", device=True) as captured:
+            z = y + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert captured.events is None and eager.events is not None
+    assert torch.equal(z, torch.full_like(x, 4.0))
+    snap = trace.snapshot()
+    assert list(snap["device_ms"]) == ["tfnas.test.eager"]
+    assert snap["device_ms"]["tfnas.test.eager"][0] >= 0
+
+
+def test_train_step_spans_in_the_profiled_trace(cuda, tracing, tmp_path):
+    """One eager train step under torch.profiler, inside a benchmark-style
+    range: the tfnas.train.* ranges lie in the Chrome trace inside it, in
+    order, each with a device time, and their device times add up to the
+    step's (events around the step)."""
+    import json
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from tfnas_tpu_torch.parallel import train_dp
+    trace = tracing
+    net, params, state, x, y = _eval_net()
+    p, s = _to(params, cuda), _to(state, cuda)
+    train, _ = train_dp.make_eval_steps(net, num_classes=10,
+                                        compute_dtype=torch.float32)
+    st = train_dp.EvalTrainState(p, s, tree_map(torch.zeros_like, p), 0)
+    keep = _to(net.draw_keep(8, torch.Generator().manual_seed(2)), cuda)
+    x, y = x.to(cuda), y.to(cuda)
+    st, _ = train(st, x, y, 0.1, keep)  # warm-up
+    torch.cuda.synchronize()
+    trace.reset()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        with record_function("bench.train_step"):
+            st, _ = train(st, x, y, 0.1, keep)
+        end.record()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") in ("user_annotation", "cpu_op")
+              and "dur" in e]
+    (outer,) = [e for e in events if e["name"] == "bench.train_step"]
+    phases = sorted((e for e in events
+                     if e["name"].startswith("tfnas.train.")),
+                    key=lambda e: e["ts"])
+    assert [e["name"] for e in phases] == [
+        "tfnas.train.forward", "tfnas.train.backward", "tfnas.train.update"]
+    for e in phases:
+        assert outer["ts"] <= e["ts"]
+        assert e["ts"] + e["dur"] <= outer["ts"] + outer["dur"]
+    dev = trace.snapshot()["device_ms"]
+    assert sorted(dev) == sorted(e["name"] for e in phases)
+    total = sum(v[0] for v in dev.values())
+    assert total == pytest.approx(start.elapsed_time(end), rel=0.2)

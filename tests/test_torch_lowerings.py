@@ -57,6 +57,7 @@ from tfnas_tpu_torch.search.train_step import (adam_init, make_search_steps,
                                                tree_leaves, tree_map,
                                                tree_unflatten,
                                                zeros_like_tree)
+from tfnas_tpu_torch.utils import trace
 from tfnas_tpu_torch.utils.checkpoint import to_numpy_tree
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -359,21 +360,28 @@ def test_driver_profile_steps_and_step_timing(tmp_path, monkeypatch):
     work, save = tmp_path / "cwd", tmp_path / "save"
     work.mkdir()
     monkeypatch.chdir(work)
-    monkeypatch.setenv("TFNAS_STEP_TIMING", "1")
-    run_dir = train_search.main([
-        "--device", "cpu", "--space", "tiny", "--synthetic", "--no_bf16",
-        "--epochs", "2", "--warmup_epochs", "1", "--steps_per_epoch", "3",
-        "--image_size", "32", "--batch_size", "4", "--num_classes", "10",
-        "--target_lat", "2.0", "--profile_steps", "2", "--save", str(save)])
+    trace.enable()  # what TFNAS_TRACE=1 does at import
+    try:
+        run_dir = train_search.main([
+            "--device", "cpu", "--space", "tiny", "--synthetic",
+            "--no_bf16", "--epochs", "2", "--warmup_epochs", "1",
+            "--steps_per_epoch", "3", "--image_size", "32", "--batch_size",
+            "4", "--num_classes", "10", "--target_lat", "2.0",
+            "--profile_steps", "2", "--save", str(save)])
+    finally:
+        trace.disable()
+        trace.reset()
     logging.getLogger().handlers.clear()
-    trace = pathlib.Path(run_dir) / "profile" / "trace.json"
-    events = json.loads(trace.read_text())["traceEvents"]
+    trace_json = pathlib.Path(run_dir) / "profile" / "trace.json"
+    events = json.loads(trace_json.read_text())["traceEvents"]
     assert any("conv" in e.get("name", "") for e in events)
+    # the spans lie in the operator's trace beside the kernels
+    assert sum(e.get("name") == "tfnas.search.step" for e in events) >= 1
     assert not list(work.iterdir())  # nothing outside --save
     assert sorted(p.name for p in tmp_path.iterdir()) == ["cwd", "save"]
     log = (pathlib.Path(run_dir) / "log.txt").read_text()
     assert log.count("timing: fetch ") == 6   # one per weight step
-    assert f"profiler trace written to {trace}" in log
+    assert f"profiler trace written to {trace_json}" in log
 
 
 # -- the tools ---------------------------------------------------------------

@@ -15,6 +15,10 @@ Optimiser: SGD momentum 0.9, weight decay 1e-5, gradient clip 5.0 by
 global norm (search/train_step.py's sgd_momentum_update with every entry
 updated), label smoothing 0.1, per-epoch cosine lr with a 5-epoch linear
 warmup when the batch exceeds 256.
+
+The eager train step's phases are device spans (utils/trace.py):
+`tfnas.train.forward` (apply and loss), `tfnas.train.backward` (the
+gradients) and `tfnas.train.update` (accuracy, the group mean and SGD).
 """
 
 from __future__ import annotations
@@ -24,8 +28,10 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..search.train_step import (mean_over_group, sgd_momentum_update,
-                                 tree_map, value_and_grad, zeros_like_tree)
+from ..search.train_step import (grad_leaves, grad_tree, mean_over_group,
+                                 sgd_momentum_update, tree_map,
+                                 tree_unflatten, zeros_like_tree)
+from ..utils import trace
 from ..utils.metrics import accuracy, cross_entropy_label_smooth, nll
 from .mesh import all_reduce_sum
 
@@ -69,16 +75,23 @@ def make_eval_steps(net, *, num_classes, label_smooth=0.1, momentum=0.9,
             return loss, (logits.detach(),
                           tree_map(torch.Tensor.detach, new_bn))
 
-        (loss, (logits, new_bn)), grads = value_and_grad(loss_fn,
-                                                         state.params)
-        top1, top5 = accuracy(logits, y, topk=(1, 5))
-        grads, metrics = mean_over_group(
-            group, grads, {"loss": loss, "top1": top1, "top5": top5})
-        params, mom = sgd_momentum_update(
-            state.params, grads, state.momentum,
-            tree_map(lambda p: None, state.params), lr=lr,
-            momentum=momentum, weight_decay=weight_decay,
-            grad_clip=grad_clip)
+        # value_and_grad(loss_fn, state.params), split at loss_fn's return
+        with trace.span("tfnas.train.forward", device=True):
+            leaves = grad_leaves(state.params)
+            loss, (logits, new_bn) = loss_fn(
+                tree_unflatten(state.params, leaves))
+        with trace.span("tfnas.train.backward", device=True):
+            grads = grad_tree(loss, state.params, leaves)
+        with trace.span("tfnas.train.update", device=True):
+            loss = loss.detach()
+            top1, top5 = accuracy(logits, y, topk=(1, 5))
+            grads, metrics = mean_over_group(
+                group, grads, {"loss": loss, "top1": top1, "top5": top5})
+            params, mom = sgd_momentum_update(
+                state.params, grads, state.momentum,
+                tree_map(lambda p: None, state.params), lr=lr,
+                momentum=momentum, weight_decay=weight_decay,
+                grad_clip=grad_clip)
         return EvalTrainState(params, new_bn, mom, state.epoch), metrics
 
     @torch.no_grad()

@@ -19,15 +19,25 @@ The trees a captured step returns are its static buffers, which the next
 replay overwrites: read or clone them before. Random draws are arguments,
 made outside the graph. Nothing on the step path reads a device value on the
 host; a capture that fails raises.
+
+Spans (utils/trace.py, each with the graph's name as its id): each call
+is `tfnas.graph.call` around `tfnas.graph.args` (the arguments' flatten,
+checks and copies into the static buffers) and `tfnas.graph.replay`; the
+first call also holds `tfnas.graph.capture`, whose time is the graph's
+`build_s` and is added to `captures`, the process's total of every
+capture.
 """
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from ..kernels import fused_dw
+from ..utils import trace
+
+# every capture of the process: how many, and their seconds (warm-up,
+# capture and instantiation)
+captures = {"count": 0, "seconds": 0.0}
 
 
 def _flatten(obj, leaves):
@@ -149,8 +159,15 @@ class GraphedFn:
         self.replays = 0
 
     def _capture(self, spec, leaves):
+        with trace.clock("tfnas.graph.capture", graph=self.name) as c:
+            self._build(spec, leaves)
+        self.build_s = c.ms / 1e3
+        captures["count"] += 1
+        captures["seconds"] += self.build_s
+        self.family.graphs.append(self)
+
+    def _build(self, spec, leaves):
         fam = self.family
-        t0 = time.perf_counter()
         static = [fam._buffer(l) for l in leaves]
         args = _unflatten(spec, iter(static))
         # the warm-up runs the out-of-place step and drops its result, so
@@ -184,17 +201,27 @@ class GraphedFn:
         self.outputs = tuple(args[self.writes[i]] if i in self.writes
                              else homes[i] for i in range(n_out))
         torch.cuda.synchronize(fam.device)
-        self.build_s = time.perf_counter() - t0
-        fam.graphs.append(self)
 
     def __call__(self, *args):
-        leaves = []
-        spec = _flatten(args, leaves)
-        if self.graph is None:
-            self._capture(spec, leaves)
-        elif spec != self.spec:
-            raise ValueError(f"{self.name}: the arguments' structure "
-                             f"changed since capture")
+        with trace.span("tfnas.graph.call", graph=self.name):
+            if self.graph is None:
+                leaves = []
+                self._capture(_flatten(args, leaves), leaves)
+            with trace.span("tfnas.graph.args", graph=self.name):
+                leaves = []
+                if _flatten(args, leaves) != self.spec:
+                    raise ValueError(f"{self.name}: the arguments' "
+                                     f"structure changed since capture")
+                self._load(leaves)
+            with trace.span("tfnas.graph.replay", graph=self.name):
+                self.graph.replay()
+            self.replays += 1
+            for s, n in self.nodes.items():
+                fused_dw.replayed[s] += n
+            return self.outputs
+
+    def _load(self, leaves):
+        """Copy the arguments' leaves into the static buffers."""
         for st, a in zip(self.static, leaves):
             if st is a:
                 continue
@@ -206,11 +233,6 @@ class GraphedFn:
                 st.copy_(a)
             else:
                 st.fill_(a)
-        self.graph.replay()
-        self.replays += 1
-        for s, n in self.nodes.items():
-            fused_dw.replayed[s] += n
-        return self.outputs
 
 
 def on_card(tree):

@@ -72,12 +72,24 @@ def mean_over_group(group, grads, metrics):
 def value_and_grad(loss_fn, tree):
     """(loss_fn(tree), d loss / d tree) for a loss_fn returning
     (loss, aux); aux is returned beside the loss."""
-    leaves = [l.detach().requires_grad_() for l in tree_leaves(tree)]
+    leaves = grad_leaves(tree)
     loss, aux = loss_fn(tree_unflatten(tree, leaves))
+    grads = grad_tree(loss, tree, leaves)
+    return (loss.detach(), aux), grads
+
+
+def grad_leaves(tree):
+    """The leaves of `tree`, detached, that a loss is differentiated by."""
+    return [l.detach().requires_grad_() for l in tree_leaves(tree)]
+
+
+def grad_tree(loss, tree, leaves):
+    """d loss / d `leaves` (grad_leaves(tree)) in `tree`'s structure,
+    zeros where the loss does not depend on a leaf."""
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(l) if g is None else g
              for l, g in zip(leaves, grads)]
-    return (loss.detach(), aux), tree_unflatten(tree, grads)
+    return tree_unflatten(tree, grads)
 
 
 # -- optimisers --------------------------------------------------------------

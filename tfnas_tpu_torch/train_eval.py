@@ -48,7 +48,7 @@ from .parallel.train_dp import (cosine_lr_with_warmup, init_eval_train_state,
 from .search.parser import (get_mc_num_dddict, get_op_and_depth_weights,
                             parse_architecture)
 from .utils import (load_checkpoint, save_checkpoint, setup_experiment,
-                    setup_rank_logging)
+                    setup_rank_logging, trace)
 
 parser = argparse.ArgumentParser(
     "training the searched architecture on imagenet (PyTorch)")
@@ -221,6 +221,7 @@ def main(argv=None):
     # uint8 batches are normalised on the card; float batches only cast
     prep = device_normalizer(dtype)
     for epoch in range(start_epoch, args.epochs):
+        trace.reset()  # traced runs keep one epoch of spans in memory
         lr = cosine_lr_with_warmup(args.lr, args.epochs, epoch,
                                    args.batch_size)
         logging.info('Epoch: %d lr %e', epoch, lr)

@@ -15,17 +15,19 @@ take a bi-sampling weight step per batch and a soft arch step after every
 second one, starting with the first (the JAX driver's order), then rescale
 the widths against the latency table. --profile_steps N traces the first N
 steps of the first epoch with torch.profiler into <run_dir>/profile/ (not
-when that epoch runs scanned units); TFNAS_STEP_TIMING=1 logs each step's
-batch fetch and dispatch ms. With --scan_units K > 1, full groups
-of 2K batches run as K units of two weight steps followed by one arch step
-(the JAX driver's scanned schedule) and the epoch's last batches step by
-step in the first order. On the card every step is replayed from a CUDA
-graph (search/compiled.py) unless --eager is given: the driver keeps its
-state in the graphs' static buffers and, at each epoch boundary, writes the
-new masks, latency vector, lr and T into them and zeros the optimiser state
-in place. Each epoch writes arch_params_NN.pkl and,
-every --save_freq epochs, searched_model_NN.pkl (the full supernet, about
-376 MB at full width) under --save: point --save outside the repository.
+when that epoch runs scanned units), the port's spans (utils/trace.py) on
+for those steps; TFNAS_TRACE=1 turns the spans on for the whole run and
+logs each step's batch fetch and dispatch ms. With --scan_units K > 1,
+full groups of 2K batches run as K units of two weight steps followed by
+one arch step (the JAX driver's scanned schedule) and the epoch's last
+batches step by step in the first order. On the card every step is
+replayed from a CUDA graph (search/compiled.py) unless --eager is given:
+the driver keeps its state in the graphs' static buffers and, at each
+epoch boundary, writes the new masks, latency vector, lr and T into them
+and zeros the optimiser state in place. Each epoch writes
+arch_params_NN.pkl and, every --save_freq epochs, searched_model_NN.pkl
+(the full supernet, about 376 MB at full width) under --save: point
+--save outside the repository.
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ from .search.train_step import (adam_init, cosine_lr_list, make_search_steps,
                                 make_scanned_search_iter, tree_leaves,
                                 zeros_like_tree)
 from .utils import (load_checkpoint, save_checkpoint_file, setup_experiment,
-                    to_numpy_tree)
+                    to_numpy_tree, trace)
 
 parser = argparse.ArgumentParser("searching TF-NAS (PyTorch)")
 parser.add_argument('--img_root', type=str, default='')
@@ -407,17 +409,24 @@ def rescale_widths(arch_params, params, mc_mask_dddict, space, lat_lookup,
 def profiled(batches, n, out_dir, device):
     """Yield `batches`; torch.profiler (CPU and, on the card, CUDA
     activities: CUPTI records the kernels of replayed CUDA graphs too)
-    traces the steps run on the first n of them. The Chrome trace is
+    traces the steps run on the first n of them, with the port's spans on,
+    so that their ranges lie beside the kernels. The Chrome trace is
     written into out_dir once the n-th step has run."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     it = iter(batches)
-    with profile(activities=acts) as prof:
-        yield from itertools.islice(it, n)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    was_on = trace.enabled()
+    trace.enable()
+    try:
+        with profile(activities=acts) as prof:
+            yield from itertools.islice(it, n)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+    finally:
+        if not was_on:
+            trace.disable()
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "trace.json")
     prof.export_chrome_trace(path)
@@ -426,17 +435,20 @@ def profiled(batches, n, out_dir, device):
 
 
 def timed(batches):
-    """Yield `batches`, logging per step the ms spent fetching its batch
-    and the ms until the next fetch: the step's dispatch (on the card, the
-    host's enqueueing, not the card's time)."""
-    t_prev = time.perf_counter()
-    for batch in batches:
-        t_fetch = time.perf_counter()
-        yield batch
-        t_done = time.perf_counter()
-        logging.info("timing: fetch %.0fms dispatch %.0fms",
-                     (t_fetch - t_prev) * 1000, (t_done - t_fetch) * 1000)
-        t_prev = t_done
+    """Yield `batches`, logging per step the ms of its span
+    `tfnas.search.fetch` (fetching its batch) and of `tfnas.search.step`
+    (until the next fetch: the step's dispatch; on the card, the host's
+    enqueueing, not the card's time)."""
+    it = iter(batches)
+    for step in itertools.count():
+        with trace.clock("tfnas.search.fetch", step=step) as fetch:
+            batch = next(it, None)
+        if batch is None:
+            return
+        with trace.clock("tfnas.search.step", step=step) as run:
+            yield batch
+        logging.info("timing: fetch %.0fms dispatch %.0fms", fetch.ms,
+                     run.ms)
 
 
 def masks_to_numpy(mc_mask_dddict):
@@ -556,18 +568,17 @@ def main(argv=None):
 
     # uint8 batches are normalised on the card; float batches only cast
     prep = device_normalizer(dtype)
-    timing = os.environ.get("TFNAS_STEP_TIMING", "") == "1"
-
     total_start = time.time()
     for epoch in range(start_epoch, args.epochs):
         lr = lr_list[epoch]
+        trace.reset()  # traced runs keep one epoch of spans in memory
         search.begin_epoch(lr, T)
         logging.info('Epoch: %d lr: %e T: %e', epoch, lr, T)
         epoch_start = time.time()
         warm = epoch < args.warmup_epochs
         batches = DevicePrefetcher(train_iter(epoch), device)
         stepwise = warm or args.scan_units == 1  # not scanned units
-        if timing and stepwise:
+        if trace.enabled() and stepwise:
             batches = timed(batches)
         if args.profile_steps > 0 and epoch == start_epoch and stepwise:
             batches = profiled(batches, args.profile_steps,

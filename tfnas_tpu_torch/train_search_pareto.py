@@ -60,7 +60,7 @@ from .search.train_step import cosine_lr_list
 from .train_search import (GeneratorDraws, load_resume, masks_to_numpy,
                            rescale_widths, space_and_lut)
 from .utils import (save_checkpoint_file, setup_experiment,
-                    setup_rank_logging, to_numpy_tree)
+                    setup_rank_logging, to_numpy_tree, trace)
 
 parser = argparse.ArgumentParser("pareto searching TF-NAS (PyTorch)")
 parser.add_argument('--img_root', type=str, default='')
@@ -225,6 +225,7 @@ def main(argv=None):
 
     total_start = time.time()
     for epoch in range(start_epoch, args.epochs):
+        trace.reset()  # traced runs keep one epoch of spans in memory
         masks = in_buffers(masks, [net.device_masks(m, device)
                                    for m in group_masks])
         update_masks = in_buffers(update_masks, [
