@@ -1878,7 +1878,7 @@ def phase_parallel(torch, fused_dw, tmpdir):
         dp, dp_graphs = {}, {}
         for name, group in (("none", None), ("nccl", world)):
             train, _ = train_dp.make_eval_steps(enet, num_classes=1000,
-                                                group=group)
+                                                group=group, capture=False)
             graphed = GraphedFn(GraphFamily(dev), train, {0: 0},
                                 f"dp_train_{name}")
             for mode, fn in (("eager", train), ("captured", graphed)):

@@ -10,7 +10,9 @@ so they run on a machine without it:
 Also the search steps replayed from CUDA graphs (search/compiled.py)
 against the eager steps, the scanned iteration's draws and result captured
 and eager, the step path without a host sync, the driver loop's buffer rewrites at epoch
-boundaries, and the latency chain (cost/measure.py); and the supernet's
+boundaries, and the latency chain (cost/measure.py); the eval train step
+replayed from its CUDA graph against the eager step (MBConv and hybrid
+nets, a short batch run eagerly between replays); and the supernet's
 opt-in lowerings: remat_blocks captured against eager and against no
 remat, the soft path's grouped project and k3/k5 depthwise split against
 the CPU, apply_multi_sampled against two sampled forwards, and the kernel
@@ -34,6 +36,8 @@ one eval train step and the folds 1e-5; captured against eager steps bit
 for bit (cuDNN deterministic), else 1e-5.
 """
 
+import gc
+
 import pytest
 import torch
 
@@ -47,6 +51,10 @@ from tfnas_tpu_torch.search.train_step import tree_leaves, tree_map
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU version")
+    # a GraphFamily and its graphs form a reference cycle: free those of
+    # earlier tests now, since a graph freed by a collection that runs
+    # inside a capture invalidates that capture
+    gc.collect()
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
@@ -460,6 +468,88 @@ def test_captured_draws_match_eager(deterministic):
         ("weight_step", 2 * K * 2), ("arch_step", 2 * K)]
 
 
+def _assert_trees_identical(a, b):
+    from tfnas_tpu_torch.search.compiled import leaves_of
+    la, lb = leaves_of(a), leaves_of(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def _hybrid_eval_net():
+    """The full-width eval net of the hybrid space with the ViT candidate
+    at stage5/block1 and stage6/block1 (op 1 elsewhere), and its init."""
+    from collections import OrderedDict
+    from tfnas_tpu_torch.models import hybrid_space as hs
+    from tfnas_tpu_torch.models.eval_net import EvalNetwork
+    from tfnas_tpu_torch.search.parser import get_mc_num_dddict
+    parsed = OrderedDict(
+        (stage, OrderedDict((f"block{i + 1}", 1) for i in range(d)))
+        for stage, d in hs.STAGE_DEPTHS.items())
+    parsed["stage5"]["block1"] = parsed["stage6"]["block1"] = hs.VIT_OP_IDX
+    net = EvalNetwork.from_parsed_arch(
+        10, parsed, get_mc_num_dddict(hs.build_mc_mask_dddict()), 0.3, 0.5)
+    assert sum(b.name == "ViTBlock" for _, _, b in net.iter_blocks()) == 2
+    return (net, *net.init(torch.Generator().manual_seed(3)))
+
+
+def _graphed_against_eager(dev, net, params, bn, sizes, res, dtype):
+    """The default train step (graphed on the card) and the eager one
+    (capture=False) from one state over batches of `sizes`, each with its
+    own keep draws and lr; asserts every step's state and metrics are
+    equal bit for bit and returns the graphed step."""
+    from tfnas_tpu_torch.parallel import train_dp
+    kw = dict(num_classes=10, compute_dtype=dtype)
+    graphed, _ = train_dp.make_eval_steps(net, **kw)
+    eager, _ = train_dp.make_eval_steps(net, capture=False, **kw)
+    p = _to(params, dev)
+    got = want = train_dp.EvalTrainState(p, _to(bn, dev),
+                                         tree_map(torch.zeros_like, p), 0)
+    g = torch.Generator(device=dev).manual_seed(4)
+    for i, n in enumerate(sizes):
+        x = torch.randn((n, res, res, 3), generator=g, device=dev)
+        y = torch.randint(0, 10, (n,), generator=g, device=dev)
+        keep = net.draw_keep(n, g)
+        lr = 0.2 / (i + 1)
+        got, gm = graphed(got, x, y, lr, keep)
+        want, wm = eager(want, x, y, lr, keep)
+        _assert_trees_identical([got[:3], gm], [want[:3], wm])
+    return graphed
+
+
+@pytest.mark.parametrize("kind,dtype", [("mbconv", torch.float32),
+                                        ("mbconv", torch.bfloat16),
+                                        ("hybrid", torch.float32)])
+def test_graphed_train_step_equals_eager(deterministic, kind, dtype):
+    """make_eval_steps' default train step on the card replays one CUDA
+    graph and equals the eager step bit for bit over 4 steps, each with
+    fresh drop-connect and dropout draws and another lr: params, BN
+    state, momentum and metrics; on the tiny MBConv net (32^2, batch 8)
+    and on a full-width hybrid net with two ViT blocks (64^2, batch 4)."""
+    if kind == "mbconv":
+        net, params, bn, _, _ = _eval_net()
+        n, res = 8, 32
+    else:
+        net, params, bn = _hybrid_eval_net()
+        n, res = 4, 64
+    step = _graphed_against_eager(deterministic, net, params, bn, [n] * 4,
+                                  res, dtype)
+    assert (step.replays, step.eager_calls) == (4, 0)
+    assert step.graphed.replays == 4 and step.graphed.name == "train_step"
+
+
+def test_graphed_train_step_runs_a_short_batch_eagerly(deterministic):
+    """A batch shorter than the captured one runs the eager step, and the
+    next full batch replays the graph from that eager step's result:
+    every step still equals the eager step bit for bit, and the counters
+    read the full batches as replays and the short ones as eager calls."""
+    net, params, bn, _, _ = _eval_net()
+    step = _graphed_against_eager(deterministic, net, params, bn,
+                                  [8, 8, 5, 8, 5, 8], 32, torch.float32)
+    assert (step.replays, step.eager_calls) == (4, 2)
+    assert step.graphed.replays == 4
+
+
 def test_step_path_never_syncs(cuda):
     """One eager warmup, weight and arch step with their draws, after a
     first call has filled the first-use caches, under
@@ -748,8 +838,10 @@ def _nccl_checks(dev, world):
     keep = enet.draw_keep(len(y), torch.Generator(device=dev).manual_seed(2))
     out = {}
     for name, group in (("none", None), ("nccl", world)):
+        gc.collect()  # the last turn's graph (see the cuda fixture)
         train, _ = train_dp.make_eval_steps(
-            enet, num_classes=10, compute_dtype=torch.float32, group=group)
+            enet, num_classes=10, compute_dtype=torch.float32, group=group,
+            capture=False)
         graphed = GraphedFn(GraphFamily(dev), train, {0: 0}, name)
         for mode, fn in (("eager", train), ("captured", graphed)):
             st = train_dp.EvalTrainState(
@@ -763,6 +855,7 @@ def _nccl_checks(dev, world):
         res = {}
         for name, mesh in (("none", ParetoMesh(1, (0,), None, 0, 1)),
                            ("nccl", ParetoMesh(1, (0,), world, 0, 1))):
+            gc.collect()
             net = SuperNetwork(10, space=tss.tiny_space(32),
                                bn_group=mesh.data_group)
             fam = GraphFamily(dev) if mode == "captured" else None
@@ -784,7 +877,6 @@ def test_one_rank_nccl_group_matches_no_group(deterministic):
     inside the CUDA graphs when captured) equal the same steps without a
     group, bit for bit, eager and captured. The group is left once the
     graphs holding its collectives are freed (a failure leaves it)."""
-    import gc
     import socket
     import torch.distributed as dist
     with socket.socket() as s:
@@ -1248,7 +1340,8 @@ def test_train_step_spans_in_the_profiled_trace(cuda, tracing, tmp_path):
     net, params, state, x, y = _eval_net()
     p, s = _to(params, cuda), _to(state, cuda)
     train, _ = train_dp.make_eval_steps(net, num_classes=10,
-                                        compute_dtype=torch.float32)
+                                        compute_dtype=torch.float32,
+                                        capture=False)
     st = train_dp.EvalTrainState(p, s, tree_map(torch.zeros_like, p), 0)
     keep = _to(net.draw_keep(8, torch.Generator().manual_seed(2)), cuda)
     x, y = x.to(cuda), y.to(cuda)

@@ -2,7 +2,8 @@
 against the JAX package's, on the CPU, tiny space, f32. The JAX steps run
 over a one-device mesh, where the cross-replica means are the identity;
 their drop-connect and dropout draws come from the step's key and are
-handed to the port's step.
+handed to the port's step. Also the train step's choice between its CUDA
+graph and the eager step (the card's part faked with a stand-in graph).
 
 Tolerances: one train step (params, BN state, momentum, metrics) 1e-5; the
 padded val step 1e-4; the lr schedule and the metrics 1e-6. Top-5 on tied
@@ -31,6 +32,7 @@ from tfnas_tpu_torch.convert import (eval_state_from_jax, params_from_jax,
 from tfnas_tpu_torch.models import search_space as tss
 from tfnas_tpu_torch.models.eval_net import EvalNetwork as TNet
 from tfnas_tpu_torch.parallel import train_dp as tdp
+from tfnas_tpu_torch.search.compiled import leaves_of
 from tfnas_tpu_torch.utils import metrics as tmetrics
 from test_torch_eval_net import jax_keep_draws
 
@@ -173,3 +175,98 @@ def test_init_eval_train_state(setup):
         jax.tree_util.tree_map(np.shape, setup["params"])
     assert all(not m.any() for m in jax.tree_util.tree_leaves(
         params_to_jax(st.momentum)))
+
+
+# -- the train step's choice between its CUDA graph and the eager step -------
+
+def _step_inputs(s, n=N, seed=0):
+    state = eval_state_from_jax({"params": s["params"], "bn_state": s["state"],
+                                 "momentum": s["mom"], "epoch": 0})
+    x = torch.from_numpy(s["x"][:n])
+    y = torch.from_numpy(s["y"][:n]).long()
+    return state, x, y, s["tn"].draw_keep(n, torch.Generator().manual_seed(
+        seed))
+
+
+def _assert_identical(a, b):
+    la, lb = leaves_of(a), leaves_of(b)
+    assert len(la) == len(lb)
+    for u, v in zip(la, lb):
+        assert u.dtype == v.dtype and torch.equal(u, v)
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Every tensor reads as on the card, and GraphedFn is a stand-in that
+    records its making and its calls and runs the step eagerly: the
+    choice between graph and eager step, followed on the CPU."""
+    made = []
+
+    class Graphed:
+        def __init__(self, family, fn, writes, name):
+            self.fn, self.calls = fn, 0
+            made.append((writes, name, self))
+
+        def __call__(self, *args):
+            self.calls += 1
+            return self.fn(*args)
+
+    monkeypatch.setattr(tdp, "on_card", lambda x: True)
+    monkeypatch.setattr(tdp, "GraphFamily", lambda device: None)
+    monkeypatch.setattr(tdp, "GraphedFn", Graphed)
+    return made
+
+
+def test_default_train_step_on_cpu_is_the_eager_step(setup):
+    """Off the card the default train step is the eager one
+    (capture=False), bit for bit, and counts an eager call."""
+    kw = dict(num_classes=CLASSES, compute_dtype=torch.float32)
+    default, _ = tdp.make_eval_steps(setup["tn"], **kw)
+    eager, _ = tdp.make_eval_steps(setup["tn"], capture=False, **kw)
+    state, x, y, keep = _step_inputs(setup)
+    got, gm = default(state, x, y, 0.2, keep)
+    want, wm = eager(state, x, y, 0.2, keep)
+    _assert_identical([got[:3], gm], [want[:3], wm])
+    assert got.epoch == 0
+    assert (default.replays, default.eager_calls) == (0, 1)
+    assert (eager.replays, eager.eager_calls) == (0, 1)
+    assert default.graphed is None
+
+
+def test_train_step_replays_full_batches_only(setup, fake_card):
+    """On the card the step is graphed once, at its first batch's shapes,
+    with the new state written back into the state's buffers ({0: 0});
+    a shorter batch (and its keep draws) runs eagerly and the next full
+    batch goes back to the graph, each step equal to the eager one."""
+    kw = dict(num_classes=CLASSES, compute_dtype=torch.float32)
+    step, _ = tdp.make_eval_steps(setup["tn"], **kw)
+    eager, _ = tdp.make_eval_steps(setup["tn"], capture=False, **kw)
+    got = want = _step_inputs(setup)[0]
+    for i, n in enumerate([N, N, 5, N, 5, N]):
+        _, x, y, keep = _step_inputs(setup, n, seed=i)
+        lr = 0.2 / (i + 1)
+        got, gm = step(got, x, y, lr, keep)
+        want, wm = eager(want, x, y, lr, keep)
+        _assert_identical([got[:3], gm], [want[:3], wm])
+    ((writes, name, graphed),) = fake_card
+    assert (writes, name) == ({0: 0}, "train_step")
+    assert step.graphed is graphed and graphed.calls == 4
+    assert (step.replays, step.eager_calls) == (4, 2)
+
+
+@pytest.mark.parametrize("kw", [{"group": "a process group"},
+                                {"capture": False}],
+                         ids=["group", "capture_false"])
+def test_train_step_never_graphs_with_a_group_or_capture_false(setup,
+                                                               fake_card, kw):
+    """A data-parallel group or capture=False keeps the eager step on the
+    card too: no graph is made and every call is an eager call."""
+    step, _ = tdp.make_eval_steps(setup["tn"], num_classes=CLASSES, **kw)
+    calls = []
+    step.fn = lambda *args: calls.append(args) or ("state", {})
+    state, x, y, keep = _step_inputs(setup)
+    for _ in range(2):
+        assert step(state, x, y, 0.2, keep) == ("state", {})
+    assert not step.capture and fake_card == [] and step.graphed is None
+    assert len(calls) == 2 and calls[0][1] is x
+    assert (step.replays, step.eager_calls) == (0, 2)

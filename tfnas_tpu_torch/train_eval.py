@@ -15,7 +15,9 @@ cosine lr, drop-connect and dropout drawn from a torch.Generator seeded by
 (real lists through ImageList's host shard, --synthetic as rows of the
 global batch), BN is cross-replica and the gradients are averaged (one
 NCCL all-reduce per step; gloo with --device cpu). Rank r > 0 draws its
-drop-connect and dropout from its own generator. Only rank 0 logs to a
+drop-connect and dropout from its own generator. On one card the train
+step is replayed from one CUDA graph (parallel/train_dp.py) unless
+--eager is given; under torchrun it runs eagerly. Only rank 0 logs to a
 file and writes. Real lists go through ImageList (uint8 pixels), the
 threaded DataLoader and the card's prefetcher, and are normalised on the
 card; --synthetic makes the JAX driver's numpy batches. Validation is
@@ -84,6 +86,9 @@ parser.add_argument('--image_size', type=int, default=224)
 parser.add_argument('--rrc_min_scale', type=float, default=0.08,
                     help='RandomResizedCrop min area fraction')
 parser.add_argument('--device', type=str, default='cuda')
+parser.add_argument('--eager', action='store_true',
+                    help='run the train step eagerly on the card instead '
+                         'of replaying it from a CUDA graph')
 
 
 def build_model(args):
@@ -203,7 +208,9 @@ def main(argv=None):
         net, num_classes=args.num_classes, label_smooth=args.label_smooth,
         momentum=args.momentum, weight_decay=args.weight_decay,
         grad_clip=args.grad_clip, compute_dtype=dtype,
-        group=make_mesh(world).data_group)
+        group=make_mesh(world).data_group, capture=not args.eager)
+    logging.info("steps: %s", "CUDA graph" if train_step.capture
+                 and device.type == "cuda" else "eager")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = init_eval_train_state(net, gen)  # the same on every rank
     if rank:
@@ -239,6 +246,8 @@ def main(argv=None):
                 logging.info('TRAIN Step: %03d Objs: %e R1: %f R5: %f',
                              step, loss_a, top1_a, top5_a)
         logging.info('Train_acc: %f', _avg3(macc)[1])
+        logging.info('train_step: %d replays, %d eager calls',
+                     train_step.replays, train_step.eager_calls)
 
         _, val_acc_top1, val_acc_top5 = validate(
             val_step, state, val_iter(epoch), prep, device)
