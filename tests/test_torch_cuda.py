@@ -12,7 +12,9 @@ against the eager steps, the scanned iteration's draws and result captured
 and eager, the step path without a host sync, the driver loop's buffer rewrites at epoch
 boundaries, and the latency chain (cost/measure.py); the eval train step
 replayed from its CUDA graph against the eager step (MBConv and hybrid
-nets, a short batch run eagerly between replays); and the supernet's
+nets, a small CoAtNet, a short batch run eagerly between replays), and
+the small CoAtNet's forward and train step on the card against the CPU;
+and the supernet's
 opt-in lowerings: remat_blocks captured against eager and against no
 remat, the soft path's grouped project and k3/k5 depthwise split against
 the CPU, apply_multi_sampled against two sampled forwards, and the kernel
@@ -517,18 +519,41 @@ def _graphed_against_eager(dev, net, params, bn, sizes, res, dtype):
     return graphed
 
 
+def _coatnet_net():
+    """A small CoAtNet (L = (2, 2, 1, 2, 1), D = (16, 16, 32, 64, 64),
+    64^2, 10 classes) with every block kind: MBConv blocks downsampling
+    with and without a projection and at stride 1, transformer blocks
+    downsampling and at stride 1; the reference's weight draws (bias
+    tables, LN affines and SE biases away from their init)."""
+    from benchmark.reference import coatnet as rc
+    from benchmark.reference.nn import Pool
+    from tfnas_tpu_torch.models.eval_net import EvalNetwork
+    cfg = rc.model_config((2, 2, 1, 2, 1), (16, 16, 32, 64, 64), 64, 10)
+    net = EvalNetwork.from_config(10, cfg, 0.3, 0.5)
+    params, bn = rc.CoAtNet(cfg, 10).init(
+        Pool(torch.Generator().manual_seed(3)))
+    return net, params, bn
+
+
 @pytest.mark.parametrize("kind,dtype", [("mbconv", torch.float32),
                                         ("mbconv", torch.bfloat16),
-                                        ("hybrid", torch.float32)])
+                                        ("hybrid", torch.float32),
+                                        ("coatnet", torch.float32),
+                                        ("coatnet", torch.bfloat16)])
 def test_graphed_train_step_equals_eager(deterministic, kind, dtype):
     """make_eval_steps' default train step on the card replays one CUDA
     graph and equals the eager step bit for bit over 4 steps, each with
     fresh drop-connect and dropout draws and another lr: params, BN
-    state, momentum and metrics; on the tiny MBConv net (32^2, batch 8)
-    and on a full-width hybrid net with two ViT blocks (64^2, batch 4)."""
+    state, momentum and metrics; on the tiny MBConv net (32^2, batch 8),
+    on a full-width hybrid net with two ViT blocks (64^2, batch 4) and on
+    a small CoAtNet with all four of its block kinds (64^2, batch 4: the
+    relative bias's backward sums without atomics)."""
     if kind == "mbconv":
         net, params, bn, _, _ = _eval_net()
         n, res = 8, 32
+    elif kind == "coatnet":
+        net, params, bn = _coatnet_net()
+        n, res = 4, 64
     else:
         net, params, bn = _hybrid_eval_net()
         n, res = 4, 64
@@ -536,6 +561,34 @@ def test_graphed_train_step_equals_eager(deterministic, kind, dtype):
                                   res, dtype)
     assert (step.replays, step.eager_calls) == (4, 0)
     assert step.graphed.replays == 4 and step.graphed.name == "train_step"
+
+
+def test_coatnet_on_card_matches_cpu(cuda):
+    """The small CoAtNet's training forward and one train step (params,
+    BN state, momentum, loss) on the card against the CPU within 1e-4, f32
+    with TF32 off."""
+    from tfnas_tpu_torch.parallel import train_dp
+    net, params, bn = _coatnet_net()
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((4, 64, 64, 3), generator=g)
+    y = torch.randint(0, 10, (4,), generator=g)
+    keep = net.draw_keep(4, torch.Generator().manual_seed(6))
+    outs = []
+    for dev in ("cpu", cuda):
+        p, s = _to(params, dev), _to(bn, dev)
+        fwd, _ = net.apply(p, s, x.to(dev), training=True,
+                           keep=_to(keep, dev))
+        train, _ = train_dp.make_eval_steps(net, num_classes=10,
+                                            compute_dtype=torch.float32,
+                                            capture=False)
+        nst, m = train(train_dp.EvalTrainState(
+            p, s, tree_map(torch.zeros_like, p), 0), x.to(dev), y.to(dev),
+            0.1, _to(keep, dev))
+        outs.append([t.cpu() for t in [fwd, m["loss"]]
+                     + tree_leaves(nst.params) + tree_leaves(nst.bn_state)
+                     + tree_leaves(nst.momentum)])
+    for c, k in zip(*outs):
+        torch.testing.assert_close(k, c, rtol=1e-4, atol=1e-4)
 
 
 def test_graphed_train_step_runs_a_short_batch_eagerly(deterministic):

@@ -188,3 +188,82 @@ def test_train_step_traced_equals_untraced_and_records_phases():
     assert [s["name"] for s in snap["spans"]] == phases * len(batches)
     assert all(s["parent"] is None for s in snap["spans"])
     assert sorted(snap["host_ms"]) == sorted(phases)
+
+
+def _coatnet_step():
+    """A small CoAtNet (two stems, MBConv blocks, transformer blocks) and
+    its eager train step."""
+    from benchmark.reference import coatnet as rc
+    cfg = rc.model_config((2, 1, 1, 2, 1), (16, 16, 32, 64, 64), 32, 10)
+    net = EvalNetwork.from_config(10, cfg, 0.2, 0.2)
+    state = train_dp.init_eval_train_state(
+        net, torch.Generator().manual_seed(3))
+    step, _ = train_dp.make_eval_steps(net, num_classes=10,
+                                       compute_dtype=torch.float32)
+    g = torch.Generator().manual_seed(4)
+    batches = [(torch.randn(4, 32, 32, 3, generator=g),
+                torch.randint(0, 10, (4,), generator=g))]
+    return net, state, step, batches
+
+
+def test_coatnet_block_and_attention_spans(tracing):
+    """With the block spans on, a CoAtNet's eager step opens one
+    `tfnas.block.mbconv` span per stem and MBConv block and one
+    `tfnas.block.attn` per transformer block in the forward, and one
+    `tfnas.attn.core` inside each attention block; in the backward the
+    same block spans in reverse order, each opening where the one before
+    closes, the last closing inside the backward's span."""
+    net, state, step, batches = _coatnet_step()
+    trace.enable(blocks=True)
+    _run(net, state, step, batches)
+    spans = trace.snapshot()["spans"]
+    order = ["tfnas.block.mbconv"] * 4 + ["tfnas.block.attn"] * 3
+    fwd = [s for s in spans if s["parent"] == "tfnas.train.forward"]
+    assert [s["name"] for s in fwd] == order
+    bwd = [s for s in spans if s["parent"] == "tfnas.train.backward"]
+    assert [s["name"] for s in bwd] == order[::-1]
+    for a, b in zip(bwd, bwd[1:]):
+        assert a["end_ns"] <= b["start_ns"]
+    (whole,) = [s for s in spans if s["name"] == "tfnas.train.backward"]
+    assert whole["start_ns"] <= bwd[0]["start_ns"]
+    assert bwd[-1]["end_ns"] <= whole["end_ns"]
+    core = [s["parent"] for s in spans if s["name"] == "tfnas.attn.core"]
+    assert core == ["tfnas.block.attn"] * 3
+    assert not trace._backward  # every backward span closed
+
+
+@pytest.mark.parametrize("blocks", [False, True])
+def test_block_spans_open_only_when_asked_for(tracing, blocks):
+    """Tracing on without the block spans, a CoAtNet's eager step records
+    the phases alone (they stay the innermost spans); with them, the
+    phases as before and the block spans inside; the state is the same
+    bit for bit either way."""
+    net, state, step, batches = _coatnet_step()
+    trace.enable(blocks=blocks)
+    on, _ = _run(net, state, step, batches)
+    names = {s["name"] for s in trace.snapshot()["spans"]}
+    phases = {"tfnas.train.forward", "tfnas.train.backward",
+              "tfnas.train.update"}
+    fine = {"tfnas.block.mbconv", "tfnas.block.attn", "tfnas.attn.core"}
+    assert names == (phases | fine if blocks else phases)
+    trace.disable()
+    off, _ = _run(net, state, step, batches)
+    for a, b in zip(tree_leaves(on.params), tree_leaves(off.params)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("make", [_tiny_train_step, _coatnet_step],
+                         ids=["tfnas", "coatnet"])
+def test_new_call_sites_off_record_nothing(monkeypatch, make):
+    """Tracing off, the block and attention call sites build no span,
+    register no hook, call nothing of the profiler or CUDA's events, and
+    leave the snapshot empty."""
+    net, state, step, batches = make()
+    assert not trace.enabled()
+    trace.reset()
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", _refuse)
+    monkeypatch.setattr(torch.cuda, "Event", _refuse)
+    monkeypatch.setattr(torch.Tensor, "register_hook", _refuse)
+    monkeypatch.setattr(trace.Span, "__init__", _refuse)
+    _run(net, state, step, batches)
+    assert trace.snapshot() == {"host_ms": {}, "device_ms": {}, "spans": []}

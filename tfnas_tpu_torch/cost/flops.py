@@ -10,7 +10,14 @@ once, as the reference's forward hooks count them:
 - AdaptiveAvgPool2d(1): C * h * w;
 - the SE convolutions are 1x1 convolutions with a bias on a 1x1 map;
 - a ViT block: the patch-merge projection, QKV, q.k^T and attn.v, the
-  attention's out projection and the two MLP linears.
+  attention's out projection and the two MLP linears;
+- CoAtNet's pre-norm MBConv block: its 1x1 convolutions at the output
+  resolution (the stride is in the first), the depthwise convolution, the
+  SE pool and linears, and the 1x1 shortcut projection when ic != oc (BN
+  and the max pool count nothing);
+- CoAtNet's transformer block: the shortcut linear, QKV from ic,
+  q.k^T and attn.v, the out projection and the two feed-forward linears
+  (the relative bias is an addition and counts nothing).
 
 `count_parameters_in_MB` counts parameters / 1e6 (BN running statistics
 are state, not parameters).
@@ -18,9 +25,9 @@ are state, not parameters).
 
 from __future__ import annotations
 
-from ..ops.attention import ViTBlock
+from ..ops.attention import RelTransformerBlock, ViTBlock
 from ..ops.layers import (ConvLayer, IdentityLayer, LinearLayer,
-                          MBInvertedResBlock)
+                          MBConvPreNorm, MBInvertedResBlock)
 from ..search.train_step import tree_leaves
 
 
@@ -87,6 +94,32 @@ def layer_flops(layer, in_res):
         f += t * (c * mc + mc)                           # mlp in
         f += t * (mc * c + c)                            # mlp out
         return f, out_res
+    if isinstance(layer, MBConvPreNorm):
+        ic, mc, oc = layer.in_channels, layer.mid_channels, layer.out_channels
+        o = in_res // layer.stride
+        bias = not layer.use_bn
+        f = _conv_flops(1, ic, mc, 1, o, o, bias)
+        f += _conv_flops(layer.kernel_size, mc, mc, mc, o, o, bias)
+        f += mc * o * o  # the SE pool
+        f += _conv_flops(1, mc, layer.se_channels, 1, 1, 1, True)
+        f += _conv_flops(1, layer.se_channels, mc, 1, 1, 1, True)
+        f += _conv_flops(1, mc, oc, 1, o, o, bias)
+        if layer.has_proj:
+            f += _conv_flops(1, ic, oc, 1, o, o, bias)
+        return f, o
+    if isinstance(layer, RelTransformerBlock):
+        ic, mc, c = layer.in_channels, layer.mid_channels, layer.out_channels
+        o = in_res // layer.stride
+        t = o * o
+        f = 0.0
+        if layer.has_proj:
+            f += t * (ic * c + c)                        # shortcut linear
+        f += t * (3 * ic * c + 3 * c)                    # QKV
+        f += 2.0 * t * t * c                             # q.k^T and attn.v
+        f += t * (c * c + c)                             # attn out proj
+        f += t * (c * mc + mc)                           # mlp in
+        f += t * (mc * c + c)                            # mlp out
+        return f, o
     raise TypeError(f"unknown layer type: {type(layer)}")
 
 
@@ -100,9 +133,10 @@ def calculate_FLOPs_in_M(network, input_size=224):
     for _, _, block in network.iter_blocks():
         f, res = layer_flops(block, res)
         total += f
-    f, res = layer_flops(network.feature_mix_layer, res)
-    total += f
-    total += network.feature_mix_layer.out_channels * res * res  # the pool
+    if network.feature_mix_layer is not None:
+        f, res = layer_flops(network.feature_mix_layer, res)
+        total += f
+    total += network.classifier.in_features * res * res  # the pool
     f, _ = layer_flops(network.classifier, 1)
     total += f
     return total / 1e6

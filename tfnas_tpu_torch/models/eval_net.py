@@ -12,6 +12,17 @@ Randomness enters as arguments: `apply(..., keep=...)` takes the
 drop-connect and dropout draws, one entry per block (the second stem first)
 and the dropout mask last, the order of the JAX package's key split.
 `draw_keep` makes them from a torch.Generator.
+
+The same class builds CoAtNet (arXiv:2106.04803; configs/coatnet2.config)
+from its model.config: a ConvLayer stem pair, MBConvPreNorm stages, then
+RelTransformerBlock stages, and no feature_mix_layer (the config leaves
+the key out: the head is global pool -> classifier). Stages absent from a
+config are empty.
+
+With the block spans on (utils/trace.py `enable(blocks=True)`), each
+block's apply, and its backward, lies in a device span: `tfnas.block.attn`
+for the attention blocks, `tfnas.block.mbconv` for the stems and every
+convolutional block.
 """
 
 from __future__ import annotations
@@ -21,11 +32,28 @@ from collections import OrderedDict
 
 import torch
 
-from ..ops.attention import ViTBlock
-from ..ops.layers import (ConvLayer, LinearLayer, MBInvertedResBlock,
-                          set_layer_from_config)
+from ..ops.attention import RelTransformerBlock, ViTBlock
+from ..ops.layers import (ConvLayer, LinearLayer, MBConvPreNorm,
+                          MBInvertedResBlock, set_layer_from_config)
+from ..utils import trace
 from . import hybrid_space as hs
 from . import search_space as ss
+
+# blocks with two residual branches (attention, feed-forward): their
+# drop-connect draws are a pair
+TWO_BRANCH = (ViTBlock, RelTransformerBlock)
+DROP_CONNECT_BLOCKS = (MBInvertedResBlock, MBConvPreNorm) + TWO_BRANCH
+
+
+def traced(block, *args, **kw):
+    """block.apply(*args, **kw), its forward and its backward each in the
+    block's device span (nothing recorded unless the block spans are
+    on)."""
+    name = ("tfnas.block.attn" if isinstance(block, TWO_BRANCH)
+            else "tfnas.block.mbconv")
+    with trace.block_span(name):
+        x, state = block.apply(*args, **kw)
+    return trace.backward_span(x, name), state
 
 
 class EvalNetwork:
@@ -80,7 +108,9 @@ class EvalNetwork:
     def from_config(cls, num_classes, model_config, dropout_rate=0.0,
                     drop_connect_rate=0.0):
         """Built from the model.config JSON alone; the classifier's
-        out_features becomes num_classes."""
+        out_features becomes num_classes. A config without a
+        feature_mix_layer pools the last stage's output straight into the
+        classifier."""
         stages = OrderedDict()
         for stage in ss.STAGE_NAMES:
             stages[stage] = [set_layer_from_config(c)
@@ -92,7 +122,7 @@ class EvalNetwork:
             second_stem=set_layer_from_config(model_config["second_stem"]),
             stages=stages,
             feature_mix_layer=set_layer_from_config(
-                model_config["feature_mix_layer"]),
+                model_config.get("feature_mix_layer")),
             classifier=set_layer_from_config(classifier_config),
             dropout_rate=dropout_rate,
             drop_connect_rate=drop_connect_rate,
@@ -120,7 +150,7 @@ class EvalNetwork:
 
     @staticmethod
     def _with_dc(block, rate):
-        if isinstance(block, (MBInvertedResBlock, ViTBlock)):
+        if isinstance(block, DROP_CONNECT_BLOCKS):
             return dataclasses.replace(block, drop_connect_rate=rate)
         return block
 
@@ -142,7 +172,8 @@ class EvalNetwork:
         }
         for stage, blocks in self.stages.items():
             cfg[stage] = [b.config for b in blocks]
-        cfg["feature_mix_layer"] = self.feature_mix_layer.config
+        if self.feature_mix_layer is not None:
+            cfg["feature_mix_layer"] = self.feature_mix_layer.config
         cfg["classifier"] = self.classifier.config
         return cfg
 
@@ -160,8 +191,9 @@ class EvalNetwork:
                 sp[f"block{i + 1}"], st[f"block{i + 1}"] = \
                     block.init(generator)
             params[stage], state[stage] = sp, st
-        params["feature_mix_layer"], state["feature_mix_layer"] = \
-            self.feature_mix_layer.init(generator)
+        if self.feature_mix_layer is not None:
+            params["feature_mix_layer"], state["feature_mix_layer"] = \
+                self.feature_mix_layer.init(generator)
         params["classifier"], state["classifier"] = \
             self.classifier.init(generator)
         return params, state
@@ -169,9 +201,9 @@ class EvalNetwork:
     def draw_keep(self, n, generator):
         """The random draws of one training forward at batch n: per block,
         floor(keep_prob + U[0, 1)) of shape [N] (a pair of them, one per
-        residual branch, for a ViT block; None where the block drops
-        nothing), then the [N, features] dropout keep mask (None at rate
-        0)."""
+        residual branch, for a ViT or relative-attention block; None where
+        the block drops nothing), then the [N, features] dropout keep mask
+        (None at rate 0)."""
         dev = generator.device
 
         def draw(rate):
@@ -181,14 +213,14 @@ class EvalNetwork:
         keep = []
         for b in self._blocks():
             rate = getattr(b, "drop_connect_rate", 0.0)
-            if rate > 0.0 and isinstance(b, ViTBlock):
+            if rate > 0.0 and isinstance(b, TWO_BRANCH):
                 keep.append((draw(rate), draw(rate)))
             elif rate > 0.0 and b.has_residual:
                 keep.append(draw(rate))
             else:
                 keep.append(None)
         if self.dropout_rate > 0.0:
-            feats = self.feature_mix_layer.out_channels
+            feats = self.classifier.in_features
             u = torch.rand((n, feats), generator=generator, device=dev)
             keep.append(u < 1.0 - self.dropout_rate)
         else:
@@ -204,25 +236,32 @@ class EvalNetwork:
         new_state = {}
         keep = keep if keep is not None else [None] * (self.block_count + 1)
         x = x.permute(0, 3, 1, 2)
-        x, new_state["first_stem"] = self.first_stem.apply(
-            params["first_stem"], state.get("first_stem", {}), x,
-            training=training, bn_group=bn_group)
-        x, new_state["second_stem"] = self.second_stem.apply(
-            params["second_stem"], state.get("second_stem", {}), x,
-            training=training, keep=keep[0], bn_group=bn_group)
+        x, new_state["first_stem"] = traced(
+            self.first_stem, params["first_stem"],
+            state.get("first_stem", {}), x, training=training,
+            bn_group=bn_group)
+        second = {"keep": keep[0]} if isinstance(
+            self.second_stem, DROP_CONNECT_BLOCKS) else {}
+        x, new_state["second_stem"] = traced(
+            self.second_stem, params["second_stem"],
+            state.get("second_stem", {}), x, training=training,
+            bn_group=bn_group, **second)
         r = 1
         for stage, blocks in self.stages.items():
             st = {}
             for i, block in enumerate(blocks):
                 bn = f"block{i + 1}"
-                x, st[bn] = block.apply(
-                    params[stage][bn], state.get(stage, {}).get(bn, {}), x,
-                    training=training, keep=keep[r], bn_group=bn_group)
+                x, st[bn] = traced(
+                    block, params[stage][bn],
+                    state.get(stage, {}).get(bn, {}), x, training=training,
+                    keep=keep[r], bn_group=bn_group)
                 r += 1
             new_state[stage] = st
-        x, new_state["feature_mix_layer"] = self.feature_mix_layer.apply(
-            params["feature_mix_layer"], state.get("feature_mix_layer", {}),
-            x, training=training, bn_group=bn_group)
+        if self.feature_mix_layer is not None:
+            x, new_state["feature_mix_layer"] = self.feature_mix_layer.apply(
+                params["feature_mix_layer"],
+                state.get("feature_mix_layer", {}), x, training=training,
+                bn_group=bn_group)
         x = x.mean(dim=(2, 3))  # global average pool
         mask = keep[-1]
         if self.dropout_rate > 0.0 and training and mask is not None:

@@ -8,6 +8,12 @@ so it folds into the convolution before it:
 The fold is computed in float64 and stored in float32, as the JAX package
 computes it in numpy float64.
 
+CoAtNet's pre-norm MBConv block (ops/layers.MBConvPreNorm) has a BN before
+its first 1x1 convolution as well; it folds into that convolution's input
+side (kernel * scale[in], bias + kernel . offset), which is exact for a
+1x1 kernel without padding at any stride. Its transformer blocks pass
+through unchanged (LayerNorm keeps no running statistics).
+
 `fold_batchnorm(net, params, state)` returns (folded_net, folded_params):
 the same EvalNetwork with use_bn=False / bias=True layers, and
 `folded_net.apply(folded_params, {}, x)` computes the eval-mode function.
@@ -25,9 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.activations import apply_act
-from ..ops.attention import ViTBlock
+from ..ops.attention import RelTransformerBlock, ViTBlock
 from ..ops.batchnorm import BN_EPS
-from ..ops.layers import ConvLayer
+from ..ops.layers import ConvLayer, MBConvPreNorm
 from .eval_net import EvalNetwork
 
 
@@ -52,11 +58,54 @@ def _fold_conv_layer(layer, params, state):
             {"conv": _fold_conv(params["conv"], params["bn"], state["bn"])})
 
 
-def _fold_mbconv(layer, params, state):
-    if isinstance(layer, ViTBlock):
-        # the hybrid space's ViT block: LayerNorm keeps no running
-        # statistics, so nothing folds; it passes through unchanged
+def _fold_input_bn(conv_params, bn_params, bn_state, eps=BN_EPS):
+    """{'kernel', 'bias'} of a 1x1 OIHW conv without padding that follows
+    a BN: the BN's per-channel scale and offset folded into its input
+    side."""
+    f64 = torch.float64
+    scale = bn_params["scale"].to(f64) / torch.sqrt(
+        bn_state["var"].to(f64) + eps)
+    offset = bn_params["bias"].to(f64) - bn_state["mean"].to(f64) * scale
+    kernel = conv_params["kernel"].to(f64)
+    bias = kernel[:, :, 0, 0] @ offset
+    if "bias" in conv_params:
+        bias = bias + conv_params["bias"].to(f64)
+    return {"kernel": kernel * scale[None, :, None, None], "bias": bias}
+
+
+def _fold_prenorm(layer, params, state):
+    if not layer.use_bn:
         return layer, dict(params)
+    first = _fold_input_bn(params["inverted_bottleneck"]["conv"],
+                           params["pre_norm"]["bn"], state["pre_norm"]["bn"])
+    new_params = {
+        "inverted_bottleneck": {"conv": _fold_conv(
+            first, params["inverted_bottleneck"]["bn"],
+            state["inverted_bottleneck"]["bn"])},
+        "depth_conv": {"conv": _fold_conv(
+            params["depth_conv"]["conv"], params["depth_conv"]["bn"],
+            state["depth_conv"]["bn"])},
+        "squeeze_excite": params["squeeze_excite"],
+    }
+    for sub in ("point_linear", "shortcut"):
+        if sub in params:
+            conv = params[sub]["conv"]
+            new_params[sub] = {"conv": {
+                "kernel": conv["kernel"],
+                "bias": torch.zeros(conv["kernel"].shape[0],
+                                    device=conv["kernel"].device)}}
+    return dataclasses.replace(layer, use_bn=False), new_params
+
+
+def _fold_mbconv(layer, params, state):
+    if isinstance(layer, (ViTBlock, RelTransformerBlock)):
+        # LayerNorm keeps no running statistics, so nothing folds; the
+        # block passes through unchanged
+        return layer, dict(params)
+    if isinstance(layer, ConvLayer):
+        return _fold_conv_layer(layer, params, state)
+    if isinstance(layer, MBConvPreNorm):
+        return _fold_prenorm(layer, params, state)
     if not layer.use_bn:
         return layer, dict(params)
     new_params = {}
@@ -87,9 +136,11 @@ def fold_batchnorm(net: EvalNetwork, params, state):
             out_blocks.append(nb)
         stages[stage] = out_blocks
         new_params[stage] = sp
-    fm_layer, new_params["feature_mix_layer"] = _fold_conv_layer(
-        net.feature_mix_layer, params["feature_mix_layer"],
-        state["feature_mix_layer"])
+    fm_layer = None
+    if net.feature_mix_layer is not None:
+        fm_layer, new_params["feature_mix_layer"] = _fold_conv_layer(
+            net.feature_mix_layer, params["feature_mix_layer"],
+            state["feature_mix_layer"])
     new_params["classifier"] = params["classifier"]
     folded = EvalNetwork(
         first_stem=fs_layer, second_stem=ss_layer, stages=stages,

@@ -1,5 +1,6 @@
 """Activation functions of the TF-NAS search space
-(counterpart of tfnas_tpu/ops/activations.py)."""
+(counterpart of tfnas_tpu/ops/activations.py), and CoAtNet's exact GELU,
+which the JAX package does not have."""
 
 from __future__ import annotations
 
@@ -30,6 +31,11 @@ def sigmoid(x):
     return torch.sigmoid(x)
 
 
+def gelu(x):
+    """Exact GELU, x * Phi(x) through erf (CoAtNet's activation)."""
+    return torch.nn.functional.gelu(x)
+
+
 # act_func string -> callable; the names are part of the model.config JSON.
 ACT_FNS = {
     "relu": relu,
@@ -38,6 +44,7 @@ ACT_FNS = {
     "h-swish": hard_swish,
     "tanh": tanh,
     "sigmoid": sigmoid,
+    "gelu": gelu,
 }
 
 

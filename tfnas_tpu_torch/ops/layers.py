@@ -15,6 +15,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .activations import apply_act
 from .batchnorm import batch_norm, init_bn
@@ -373,6 +374,142 @@ class MBInvertedResBlock:
         return x, new_state
 
 
+@dataclasses.dataclass(frozen=True)
+class MBConvPreNorm:
+    """CoAtNet's pre-norm MBConv block (arXiv:2106.04803, eq. 5):
+
+        h = BN0(x)
+        h = act(BN1(Conv1x1_s(h, ic -> mc)))     stride s in this 1x1 conv
+        h = act(BN2(DWkxk(h)))
+        h = h * sigmoid(W2 act(W1 mean_hw(h)))   SE of se_channels
+        y = sc + drop_connect(Conv1x1(h, mc -> oc))
+
+    with sc = MaxPool2x2_s2(x) when s > 1, then a 1x1 projection when
+    ic != oc; sc = x otherwise. Both branches add, so every block takes a
+    drop-connect draw. The convolutions carry no bias while use_bn; the
+    BN-folded block (models/folding.py) has use_bn=False and a bias on each
+    convolution, BN0 folded into the first one.
+    """
+
+    in_channels: int
+    mid_channels: int
+    se_channels: int
+    out_channels: int
+    kernel_size: int = 3
+    stride: int = 1
+    use_bn: bool = True
+    act_func: Optional[str] = "gelu"
+    drop_connect_rate: float = 0.0
+
+    name = "MBConvPreNorm"
+    has_residual = True
+
+    @property
+    def has_proj(self):
+        return self.in_channels != self.out_channels
+
+    @property
+    def config(self):
+        return {
+            "name": "MBConvPreNorm",
+            "in_channels": self.in_channels,
+            "mid_channels": self.mid_channels,
+            "se_channels": self.se_channels,
+            "out_channels": self.out_channels,
+            "kernel_size": self.kernel_size,
+            "stride": self.stride,
+            "use_bn": self.use_bn,
+            "act_func": self.act_func,
+        }
+
+    def _conv_bn(self, kernel, generator, bn=True):
+        conv = {"kernel": kernel}
+        if not self.use_bn:
+            conv["bias"] = torch.zeros(kernel.shape[0],
+                                       device=generator.device)
+        p, s = {"conv": conv}, {}
+        if bn and self.use_bn:
+            p["bn"], s["bn"] = init_bn(kernel.shape[0], True,
+                                       generator.device)
+        return p, s
+
+    def init(self, generator):
+        ic, mc, oc, k = (self.in_channels, self.mid_channels,
+                         self.out_channels, self.kernel_size)
+        dev = generator.device
+        params, state = {}, {}
+        if self.use_bn:
+            params["pre_norm"], state["pre_norm"] = {}, {}
+            params["pre_norm"]["bn"], state["pre_norm"]["bn"] = init_bn(
+                ic, True, dev)
+        params["inverted_bottleneck"], state["inverted_bottleneck"] = \
+            self._conv_bn(init_conv_kernel(1, 1, ic, mc, generator),
+                          generator)
+        params["depth_conv"], state["depth_conv"] = self._conv_bn(
+            init_conv_kernel(k, k, 1, mc, generator), generator)
+        sec = self.se_channels
+        params["squeeze_excite"] = {
+            "conv_reduce": {
+                "kernel": torch_uniform_init((mc, sec), mc, generator),
+                "bias": torch_uniform_init((sec,), mc, generator),
+            },
+            "conv_expand": {
+                "kernel": torch_uniform_init((sec, mc), sec, generator),
+                "bias": torch_uniform_init((mc,), sec, generator),
+            },
+        }
+        params["point_linear"], _ = self._conv_bn(
+            init_conv_kernel(1, 1, mc, oc, generator), generator, bn=False)
+        if self.has_proj:
+            params["shortcut"], _ = self._conv_bn(
+                init_conv_kernel(1, 1, ic, oc, generator), generator,
+                bn=False)
+        return params, state
+
+    def _conv_bn_act(self, x, params, state, new_state, name, training,
+                     group, stride=1, groups=1, act=True):
+        conv = params[name]["conv"]
+        x = conv2d(x, conv["kernel"], stride=stride, groups=groups,
+                   bias=conv.get("bias"))
+        if "bn" in params[name]:
+            x, new_state.setdefault(name, {})["bn"] = batch_norm(
+                x, params[name]["bn"], state[name]["bn"], affine=True,
+                training=training, group=group)
+        return apply_act(x, self.act_func) if act else x
+
+    def apply(self, params, state, x, *, training=False, keep=None,
+              bn_group=None):
+        """keep: the [N] 0/1 drop-connect draw (used when training with a
+        rate > 0); bn_group: the process group of cross-replica BN."""
+        new_state = {k: dict(v) for k, v in state.items()}
+        sc = x
+        if self.stride > 1:
+            sc = F.max_pool2d(sc, self.stride, self.stride)
+        if self.has_proj:
+            sc = self._conv_bn_act(sc, params, state, new_state, "shortcut",
+                                   training, bn_group, act=False)
+        h = x
+        if "pre_norm" in params:
+            h, new_state["pre_norm"]["bn"] = batch_norm(
+                h, params["pre_norm"]["bn"], state["pre_norm"]["bn"],
+                affine=True, training=training, group=bn_group)
+        h = self._conv_bn_act(h, params, state, new_state,
+                              "inverted_bottleneck", training, bn_group,
+                              stride=self.stride)
+        h = self._conv_bn_act(h, params, state, new_state, "depth_conv",
+                              training, bn_group, groups=self.mid_channels)
+        se = params["squeeze_excite"]
+        z = apply_act(linear(global_avg_pool(h), se["conv_reduce"]),
+                      self.act_func)
+        gate = torch.sigmoid(linear(z, se["conv_expand"]).float())
+        h = h * gate.to(h.dtype)[:, :, None, None]
+        h = self._conv_bn_act(h, params, state, new_state, "point_linear",
+                              training, bn_group, act=False)
+        if self.drop_connect_rate > 0.0 and training and keep is not None:
+            h = drop_connect(h, keep, self.drop_connect_rate)
+        return sc + h, new_state
+
+
 # -- config (de)serialisation ----------------------------------------------
 
 _NAME2LAYER = {
@@ -380,6 +517,7 @@ _NAME2LAYER = {
     "IdentityLayer": IdentityLayer,
     "LinearLayer": LinearLayer,
     "MBInvertedResBlock": MBInvertedResBlock,
+    "MBConvPreNorm": MBConvPreNorm,
 }
 
 
@@ -392,4 +530,7 @@ def set_layer_from_config(layer_config):
     if name == "ViTBlock":  # the hybrid space's candidate (ops/attention.py)
         from .attention import ViTBlock
         return ViTBlock(**cfg)
+    if name == "RelTransformerBlock":  # CoAtNet's (ops/attention.py)
+        from .attention import RelTransformerBlock
+        return RelTransformerBlock(**cfg)
     return _NAME2LAYER[name](**cfg)

@@ -4,7 +4,9 @@ of torch.profiler's trace, and device times of eager code.
 One switch, off by default: `enable()` / `disable()`, or TFNAS_TRACE=1 in
 the environment when this module is first imported. Off, `span()` returns
 one shared null context: a global read, no allocation and no torch call.
-On, a span
+The block spans (`block_span()`, `backward_span()`) open only after
+`enable(blocks=True)`: they are finer than the train step's phases, which
+their readers take to be the innermost spans open. On, a span
 
 - enters a profiler range of its name (torch's `_RecordFunctionFast`:
   `torch.profiler.record_function` at about a twentieth of its host cost,
@@ -18,6 +20,11 @@ On, a span
   stream at entry and at exit (eager code only: under a stream capture it
   records none, and none where CUDA is not initialised).
 
+`backward_span(t, name)` opens a device span of `name` in the backward
+pass when t's gradient arrives; it closes when the pass's next such span
+opens, or when the pass ends. On the outputs of a chain of blocks these
+spans tile the pass: each block's backward lies in the span of its output.
+
 `clock()` is a span that measures its host time whether tracing is on or
 off (for numbers the program reports anyway, such as a graph's build
 time); it is recorded only when tracing is on. `snapshot()` returns the
@@ -29,6 +36,12 @@ Span names:
   tfnas.graph.call, .args, .replay, .capture   search/compiled.GraphedFn
   tfnas.train.forward, .backward, .update       parallel/train_dp train_step
   tfnas.search.fetch, .step                     train_search's per-step log
+  tfnas.block.mbconv, .attn (device, blocks)    models/eval_net apply, each
+                                                block (stems and convolutional
+                                                blocks in .mbconv), forward
+                                                and backward
+  tfnas.attn.core (device, blocks)              ops/attention rel_attention:
+                                                q.k, bias, softmax, .v
 """
 
 from __future__ import annotations
@@ -42,18 +55,19 @@ import torch
 
 NULL = contextlib.nullcontext()
 _on = os.environ.get("TFNAS_TRACE", "") == "1"
+_blocks = False
 _local = threading.local()
 _closed = []   # spans closed since the last reset, from every thread
 
 
-def enable():
-    global _on
-    _on = True
+def enable(blocks=False):
+    global _on, _blocks
+    _on, _blocks = True, blocks
 
 
 def disable():
-    global _on
-    _on = False
+    global _on, _blocks
+    _on = _blocks = False
 
 
 def enabled():
@@ -64,17 +78,18 @@ class Span:
     """One timed range. `ms` is its host time once closed."""
 
     __slots__ = ("name", "ids", "parent", "thread", "start_ns", "end_ns",
-                 "events", "_kept", "_device", "_range")
+                 "events", "_kept", "_device", "_range", "_held")
 
     def __init__(self, name, ids, device=False, kept=True):
         self.name, self.ids = name, ids
         self._kept, self._device = kept, device
         self.parent = self.thread = self.events = self._range = None
+        self._held = None  # the stack it was entered on
         self.start_ns = self.end_ns = None
 
     def __enter__(self):
         if self._kept:
-            stack = _stack()
+            stack = self._held = _stack()
             self.parent = stack[-1] if stack else None
             self.thread = threading.get_ident()
             stack.append(self)
@@ -95,9 +110,10 @@ class Span:
                 self.events[1].record()
             self._range.__exit__(*exc)
             self._range = None
-            stack = _stack()
-            if self in stack:  # a generator's span may close out of order
-                stack.remove(self)
+            # a generator's span may close out of order, a backward span
+            # on another thread
+            if self in self._held:
+                self._held.remove(self)
             _closed.append(self)
         return False
 
@@ -126,6 +142,45 @@ def span(name, device=False, **ids):
     if not _on:
         return NULL
     return Span(name, ids, device)
+
+
+_backward = []  # the open backward span of the pass in progress
+
+
+def block_span(name):
+    """A recorded device span when the block spans are on; the shared null
+    context otherwise."""
+    if not _blocks:
+        return NULL
+    return Span(name, {}, True)
+
+
+def backward_span(t, name):
+    """t, with a hook that opens the device span `name` when t's gradient
+    arrives in a backward pass, closing the one the pass opened before;
+    the pass's last closes when the pass ends. t as it is when the block
+    spans are off, t needs no gradient or its stream is capturing."""
+    if not _blocks or not t.requires_grad or (
+            t.is_cuda and torch.cuda.is_current_stream_capturing()):
+        return t
+    t.register_hook(lambda g: _open_backward(name))
+    return t
+
+
+def _open_backward(name):
+    if _backward:
+        _close_backward()
+    else:
+        torch.autograd.Variable._execution_engine.queue_callback(
+            _close_backward)
+    s = Span(name, {}, device=True)
+    s.__enter__()
+    _backward.append(s)
+
+
+def _close_backward():
+    if _backward:
+        _backward.pop().__exit__(None, None, None)
 
 
 def clock(name, **ids):
