@@ -6,9 +6,10 @@
 Phases, each printing one JSON line as soon as it ends:
 
 1. env: the card (nvidia-smi name and power limit), torch and CUDA
-   versions, the nvcc builds (sm_90a) of the two libraries, one nvcc each,
-   started together: the fused depthwise kernel and the card image
-   pipeline (nvJPEG decode and the augment kernel); nvJPEG's version and
+   versions, the nvcc builds (sm_90a) of the three libraries, one nvcc
+   each, started together: the fused depthwise kernel, the card image
+   pipeline (nvJPEG decode and the augment kernel) and the fused
+   epilogue; nvJPEG's version and
    whether its hardware backend opens; and what the host offers the port:
    g++ and libjpeg's header (`gxx`, `jpeglib_h`: the C++ image pipeline),
    and whether PIL and triton import (`pil`, `triton`: each one's
@@ -26,7 +27,13 @@ Phases, each printing one JSON line as soon as it ends:
    128 MB buffer written before each: cold L2) and `host_us` (host clock
    per call, enqueue only), for the kernel and for one depthwise F.conv2d
    as a library yardstick (`library_*`); the plain version's `plain_ms`;
-   and the least time the card could take (`bound_ms`).
+   and the least time the card could take (`bound_ms`). Then the fused
+   epilogue kernel (kernels/bias_act.py) against its plain version at the
+   served net's sites (EPILOGUE_SITES: 112^2 x 32 and 48, 56^2 x 144,
+   7^2 x 1152 and 192 with a residual, the SE gate, [32, 1152] and
+   [32, 1000] rows), its bias f32 and bf16, within one bf16 ulp and a
+   rerun bit for bit, and its times at each site the same ways (`epilogue`
+   lines).
 3. search: the full-width MBConv supernet (batch 32, 224^2, 100 classes,
    bf16 activations, latency_pkl/latency_tpu.pkl) on synthetic data made on
    the card: 2 warmup, 2 bi-sampling weight and 2 arch steps (eager), one
@@ -72,8 +79,11 @@ Phases, each printing one JSON line as soon as it ends:
    space-to-depth stem must equal the unfolded forward: f32 with TF32 off
    within 1e-4 x max|logit|, bf16 within 2e-2 x max|logit|; then bf16
    inference images/s of the unfolded, folded and s2d nets at batch 256
-   (CUDA events, in turns). The eval path launches no fused kernel: its
-   depthwise convolutions are cuDNN's, as they are XLA's in JAX.
+   (CUDA events, in turns); the folded bf16 forward replayed from a CUDA
+   graph (search/compiled.py), whose fused epilogue nodes must number the
+   net's epilogue sites with none left unfused (`epilogue` in the fold
+   line). The eval path launches no fused depthwise kernel: its depthwise
+   convolutions are cuDNN's, as they are XLA's in JAX.
 
 9. hybrid: the full-width HybridSuperNetwork (the 9-op conv/ViT space,
    batch 32, 224^2, 100 classes, bf16, latency_pkl/latency_h100_hybrid.pkl):
@@ -90,7 +100,8 @@ Phases, each printing one JSON line as soon as it ends:
    and --eager, whose arch_params_NN.pkl must be the same bytes; then an
    eval net with the ViT candidate at stage5/block1 and stage6/block1:
    two bf16 train steps at batch 256, the folds against the unfolded
-   forward, folded bf16 images/s and its latency at batch 32. The
+   forward and the graphed folded forward's epilogue nodes, folded bf16
+   images/s and its latency at batch 32. The
    kernel's checks of phase 2 cover the hybrid sites: their depthwise
    shapes are the MBConv sites'.
 10. parallel: the full-width MBConv Pareto search of G = 2 targets (4.5
@@ -161,8 +172,10 @@ Phases, each printing one JSON line as soon as it ends:
    nodes, from its last line).
 
 The line before the last holds the kernels' summary, with each path's
-launches (`launches_tools`: the phase 12 search tools', by stride) and
-the augment kernel's launches in the real-JPEG search; the last line is
+launches (`launches_tools`: the phase 12 search tools', by stride), the
+fused epilogue's nodes per graphed folded forward against the net's
+epilogue sites, and the augment kernel's launches in the real-JPEG
+search; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
 does a run without a card, a run without the package beside this file, and
 a run past the 10-minute deadline.
@@ -192,6 +205,26 @@ TARGET_LAT = 0.25           # ms, inside latency_tpu.pkl's range
 HYBRID_TARGET_LAT = 4.5     # ms, inside latency_h100_hybrid.pkl's range
 PARETO_TARGETS = (4.5, 6.0)  # ms, inside latency_h100.pkl's 4.193-7.350
 FLUSH_BYTES = 128 << 20     # written between launches for the cold-L2 time
+# the fused epilogue's sites in the served TF-NAS-A-class net at batch 32
+# (kernels/bias_act.py): its widest maps (the stem's and stage 1's at 112^2,
+# stage 2's at 56^2), the stage-5 block at 7^2 (expand, SE gate, project
+# with its residual), that block's SE expand (an [N, C] sigmoid) and the
+# logits; (name, shape, act, bias, gate, residual)
+EPILOGUE_SITES = (
+    ("stem 32@112^2", (32, 32, 112, 112), "relu", True, False, False),
+    ("stage1 expand 48@112^2", (32, 48, 112, 112), "relu", True, False,
+     False),
+    ("stage2 expand 144@56^2", (32, 144, 56, 56), "swish", True, False,
+     False),
+    ("stage5 expand 1152@7^2", (32, 1152, 7, 7), "swish", True, False,
+     False),
+    ("stage5 SE gate 1152@7^2", (32, 1152, 7, 7), None, False, True, False),
+    ("stage5 project 192@7^2 + residual", (32, 192, 7, 7), None, True,
+     False, True),
+    ("stage5 SE expand 1152, sigmoid", (32, 1152), "sigmoid", True, False,
+     False),
+    ("classifier 1000", (32, 1000), None, True, False, False),
+)
 # ragged shapes the main path does not reach: (N, H, W, C); C 30 and 194
 # take the channel-pair copies in both dtypes, 200 the 16-byte ones
 EDGE_SHAPES = ((1, 1, 1, 30), (3, 7, 13, 194), (1, 13, 57, 200),
@@ -208,7 +241,7 @@ def _deadline(signum, frame):
 
 # -- phase 1 ------------------------------------------------------------------
 
-def phase_env(torch, fused_dw, card):
+def phase_env(torch, fused_dw, card, bias_act):
     import concurrent.futures as cf
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -216,13 +249,15 @@ def phase_env(torch, fused_dw, card):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    with cf.ThreadPoolExecutor(2) as pool:  # one nvcc per source, at once
-        builds = [pool.submit(lib.build_library) for lib in (fused_dw, card)]
+    with cf.ThreadPoolExecutor(3) as pool:  # one nvcc per source, at once
+        builds = [pool.submit(lib.build_library)
+                  for lib in (fused_dw, card, bias_act)]
         for b in builds:
             b.result()
     wall = time.perf_counter() - t0
     built = {"fused_dw": dict(fused_dw.build_info),
-             "image_decode": dict(card.build_info)}
+             "image_decode": dict(card.build_info),
+             "bias_act": dict(bias_act.build_info)}
     nvjpeg = card.open_pipeline("cuda")
     # the C++ image pipeline (runtime/native.py) needs g++ and libjpeg's
     # header; the smoke does not use it, it records whether they are here
@@ -245,6 +280,7 @@ def phase_env(torch, fused_dw, card):
           "nvcc_flags": " ".join(fused_dw.NVCC_FLAGS),
           "ptxas": built["fused_dw"]["log"][-800:],
           "ptxas_image_decode": built["image_decode"]["log"][-800:],
+          "ptxas_bias_act": built["bias_act"]["log"][-800:],
           "nvjpeg": nvjpeg["nvjpeg"], "nvjpeg_library": nvjpeg["library"],
           "nvjpeg_hardware_backend": nvjpeg["hardware"],
           "nvjpeg_hardware_status": nvjpeg["hardware_status"],
@@ -469,6 +505,109 @@ def phase_kernel(torch, fused_dw, tss):
         del x, x1
     del flush
     return per_stride, times
+
+
+def epilogue_operands(torch, gen, shape, bias, gate, residual,
+                      bias_dtype=None):
+    """x (bf16, channels_last or [N, C]), the bias (f32, or `bias_dtype`),
+    a bf16 gate and a residual of an epilogue site; None where the site
+    has no such operand."""
+    def draw():
+        t = (torch.randn(shape, generator=gen, device="cuda") * 3.0).to(
+            torch.bfloat16)
+        return (t.contiguous(memory_format=torch.channels_last)
+                if t.dim() == 4 else t)
+    n, c = shape[:2]
+    b = torch.randn(c, generator=gen, device="cuda") if bias else None
+    if b is not None and bias_dtype is not None:
+        b = b.to(bias_dtype)
+    s = (torch.rand((n, c), generator=gen, device="cuda").bfloat16()
+         if gate else None)
+    return draw(), b, s, draw() if residual else None
+
+
+def epilogue_bound_ms(x, b, s, r):
+    """The least time for an epilogue on the card: x read and out written
+    once, the residual, bias and gate read once, at the HBM rate."""
+    nbytes = 2 * x.numel() * x.element_size()
+    nbytes += sum(t.numel() * t.element_size() for t in (b, s, r)
+                  if t is not None)
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def bf16_ulps(torch, got, want):
+    """The largest |got - want| in units in the last place of want's bf16
+    value."""
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    return float(((got.float() - w).abs() / ulp).max())
+
+
+def phase_epilogue(torch, bias_act):
+    """The fused epilogue kernel against its plain version at the served
+    net's sites (EPILOGUE_SITES), the bias f32 as folded and bf16 as a
+    server casts it: within one bf16 ulp, a rerun bit for bit. Then each
+    site's times in bf16, as phase 2 times the depthwise kernel, beside
+    the plain version's and the HBM bound."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    rows, failures = [], []
+    for name, shape, act, *kinds in EPILOGUE_SITES:
+        row = {"phase": "epilogue", "site": name, "shape": list(shape),
+               "act": act}
+        for tag, bias_dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            x, b, s, r = epilogue_operands(torch, gen, shape, *kinds,
+                                           bias_dtype)
+            with torch.no_grad():
+                got = bias_act.bias_act_cuda(x, b, act, s, r)
+                again = bias_act.bias_act_cuda(x, b, act, s, r)
+                want = bias_act.bias_act_plain(x, b, act, s, r)
+            row[f"max_ulps_{tag}_bias"] = bf16_ulps(torch, got, want)
+            row[f"bit_identical_rerun_{tag}_bias"] = torch.equal(got, again)
+        row["ok"] = all(row[f"max_ulps_{t}_bias"] <= 1.0
+                        and row[f"bit_identical_rerun_{t}_bias"]
+                        for t in ("f32", "bf16"))
+        x, b, s, r = epilogue_operands(torch, gen, shape, *kinds)
+
+        def kernel():
+            return bias_act.bias_act_cuda(x, b, act, s, r)
+
+        with torch.no_grad():
+            row["ms"] = _timed(torch, kernel)
+            row["device_ms"], row["cold_ms"], row["host_us"] = _timings(
+                torch, kernel, flush)
+            row["plain_ms"] = _timed(torch, lambda: bias_act.bias_act_plain(
+                x, b, act, s, r))
+        row["bound_ms"], row["bound_by"] = epilogue_bound_ms(x, b, s, r), \
+            "bytes"
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            failures.append(name)
+    del flush
+    if failures:
+        raise AssertionError(f"the epilogue kernel disagrees with its plain "
+                             f"version at {failures}")
+    return rows
+
+
+def _epilogue_sites(net):
+    """The epilogue sites of a BN-folded eval net, from its layers: the
+    first stem, the feature-mix layer and the classifier, each ConvLayer,
+    and in an MBConv block each 1x1 and depthwise convolution and the SE's
+    reduce, expand and gate (ViT blocks have none)."""
+    from tfnas_tpu_torch.ops.layers import (ConvLayer, MBConvPreNorm,
+                                            MBInvertedResBlock)
+    n = 2 + (net.feature_mix_layer is not None)
+    for b in [net.second_stem] + [b for _, _, b in net.iter_blocks()]:
+        if isinstance(b, ConvLayer):
+            n += 1
+        elif isinstance(b, MBInvertedResBlock):
+            n += b.has_expand + 2 + 3 * b.has_se
+        elif isinstance(b, MBConvPreNorm):
+            n += b.has_proj + 6
+    return n
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -1204,10 +1343,15 @@ def _test(torch, np, net, state):
 
 def _folds(torch, np, net, state):
     """BN folding and the s2d stem against the unfolded forward, f32
-    (TF32 off) and bf16; then bf16 inference images/s, in turns."""
+    (TF32 off) and bf16; then bf16 inference images/s, in turns; then the
+    folded bf16 forward replayed from a CUDA graph, as the serving cell
+    runs it: a fused epilogue node at each of its epilogue sites, none
+    left unfused. Returns that replay's epilogue counts."""
     from tfnas_tpu_torch.data import device_normalizer
+    from tfnas_tpu_torch.kernels import bias_act
     from tfnas_tpu_torch.models.folding import (fold_batchnorm,
                                                 fold_stem_space_to_depth)
+    from tfnas_tpu_torch.search import compiled
     from tfnas_tpu_torch.search.train_step import tree_map
 
     dev = torch.device("cuda")
@@ -1255,12 +1399,29 @@ def _folds(torch, np, net, state):
             rec[f"{name}_bf16_ms"] = t
             rec[f"{name}_bf16_images_per_s"] = [EVAL_BATCH / v * 1e3
                                                 for v in t]
+        p16 = tree_map(lambda t: t.to(torch.bfloat16), fparams)
+        bias_act.reset_counts()
+        graphed = compiled.GraphedFn(
+            compiled.GraphFamily(dev),
+            lambda xx: (folded.apply(p16, {}, xx)[0],), {}, "folded")
+        for _ in range(2):
+            graphed(x)
+        torch.cuda.synchronize()
+        epi = {"sites": _epilogue_sites(folded),
+               "graph_nodes": graphed.epilogue_nodes, **bias_act.counts()}
+        rec["epilogue"] = epi
+        if epi["graph_nodes"] != epi["sites"] or epi["unfused"]:
+            failures.append(("epilogue", epi))
+        del graphed
     emit(rec)
     if failures:
         raise AssertionError(f"folded forward disagrees: {failures}")
+    return epi
 
 
 def phase_eval(torch, tmpdir, searched):
+    """Returns the fused epilogue's counts in the folded net's graphed
+    forward (`_folds`)."""
     import numpy as np
     from tfnas_tpu_torch import parsing_model
     from tfnas_tpu_torch.models.eval_net import EvalNetwork
@@ -1285,7 +1446,7 @@ def phase_eval(torch, tmpdir, searched):
                         tmpdir, profile=True)
     _retrain(torch, np, "parsed", parsed, 2, tmpdir)
     _test(torch, np, tfnas_a, state)
-    _folds(torch, np, tfnas_a, state)
+    return _folds(torch, np, tfnas_a, state)
 
 
 # -- phase 9 ------------------------------------------------------------------
@@ -2827,20 +2988,21 @@ def main():
         print("chip_smoke.py: no CUDA device; nothing was run",
               file=sys.stderr)
         return 1
-    from tfnas_tpu_torch.kernels import fused_dw
+    from tfnas_tpu_torch.kernels import bias_act, fused_dw
     from tfnas_tpu_torch.models import search_space as tss
     from tfnas_tpu_torch.runtime import card
 
     t_start = time.perf_counter()
-    phase_env(torch, fused_dw, card)
+    phase_env(torch, fused_dw, card, bias_act)
     per_stride, times = phase_kernel(torch, fused_dw, tss)
+    epilogue = phase_epilogue(torch, bias_act)
     with tempfile.TemporaryDirectory() as tmpdir:
         launches, searched = phase_search(torch, fused_dw, tmpdir)
         nodes, cprof, ctimes = phase_capture(torch, fused_dw, tmpdir)
         replayed = phase_driver(torch, tmpdir)
         phase_lut(torch, tmpdir)
         fused_dw.reset_launches()  # the eval path's own count
-        phase_eval(torch, tmpdir, searched)
+        served = phase_eval(torch, tmpdir, searched)
         eval_launches = sum(fused_dw.launches.values())
         emit({"phase": "eval", "step": "fused_dw_launches",
               "launches": eval_launches})
@@ -2922,6 +3084,29 @@ def main():
             # launches and replayed nodes
             "launches_tools": {name: by[stride]
                                for name, by in tools.items()}})
+    head = max(epilogue, key=lambda r: math.prod(r["shape"]))
+    kernels.append({
+        "name": "bias_act (fused epilogue)", "route": "cuda",
+        "source": "tfnas_tpu_torch/csrc/bias_act.cu",
+        "replaces": "none: XLA fuses a bias, activation, SE gate and "
+                    "residual into the convolution; PyTorch ran them as "
+                    "3-5 passes",
+        "launches": served["launches"],
+        "max_ulps": max(max(r["max_ulps_f32_bias"], r["max_ulps_bf16_bias"])
+                        for r in epilogue),
+        "shape": head["shape"], "ms": head["ms"],
+        "device_ms": head["device_ms"], "cold_ms": head["cold_ms"],
+        "host_us": head["host_us"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        # the folded TF-NAS-A-class net's forward replayed from a graph
+        # (phase 8): kernel nodes per forward, its epilogue sites, and the
+        # sites left to PyTorch's ops
+        "graph_nodes_per_forward": served["graph_nodes"],
+        "epilogue_sites": served["sites"], "unfused": served["unfused"],
+        "sites": {r["site"]: {k: r[k] for k in ("device_ms", "bound_ms",
+                                                "host_us", "plain_ms")}
+                  for r in epilogue}})
     if not augment["launches"]:
         raise AssertionError("the augment kernel never launched on the "
                              "real-JPEG search")

@@ -27,10 +27,20 @@ against PIL, the entries nvJPEG refuses, ImageList on the
 card, and a card list whose library does not build. And the port's spans
 (utils/trace.py): a GraphedFn's call, argument, replay and capture spans,
 no device event under a stream capture, and the eager train step's
-phases in a profiled Chrome trace with their device times.
+phases in a profiled Chrome trace with their device times. And the fused
+epilogue kernel (kernels/bias_act.py) against its plain version at the
+served net's site shapes, every activation, on its scalar path (odd C,
+NCHW, unaligned operands) and in f32; its wrapper's refusals; a captured
+launch against the eager one; the BN-folded TF-NAS-A-class forward
+replayed from a GraphedFn with a kernel node at each of its 89 epilogue
+sites; that forward with bf16 parameters (bf16 biases) and
+cost/measure.py's bf16 latency through the kernel; a CoAtNet train step
+that never launches it.
 
 Tolerances: f32 with TF32 off, 2e-4 for y (summation order) and 1e-3 for
 the sums; bf16, 2e-2 (one bf16 rounding of y, 2^-8 relative, either way);
+the epilogue kernel one bf16 ulp (both versions round one f32 result
+once), 1e-5 in f32;
 the augment kernel within one uint8 level of its plain version on at most
 0.1% of the values; nvJPEG within 2 levels of PIL on average per file;
 the search steps and the eval forward on the card against the CPU 1e-4,
@@ -39,6 +49,7 @@ for bit (cuDNN deterministic), else 1e-5.
 """
 
 import gc
+import math
 
 import pytest
 import torch
@@ -1428,3 +1439,262 @@ def test_train_step_spans_in_the_profiled_trace(cuda, tracing, tmp_path):
     assert sorted(dev) == sorted(e["name"] for e in phases)
     total = sum(v[0] for v in dev.values())
     assert total == pytest.approx(start.elapsed_time(end), rel=0.2)
+
+
+# -- the fused epilogue (kernels/bias_act.py) ---------------------------------
+
+# the served TF-NAS-A-class net's widest epilogue sites at batch 32 (the
+# stem's and stage 1's 112^2 maps, stage 2's 56^2), one at 7^2, the logits
+EPILOGUE_SHAPES = [(32, 32, 112, 112), (32, 48, 112, 112), (32, 144, 56, 56),
+                   (32, 1152, 7, 7), (32, 1000)]
+EPILOGUE_ACTS = [None, "relu", "relu6", "swish", "h-swish", "sigmoid",
+                 "tanh", "gelu"]
+# (bias, gate, residual): the kinds of site the layers have, and all three
+EPILOGUE_OPERANDS = [(True, False, False), (True, False, True),
+                     (False, True, False), (True, True, True)]
+
+
+def _epilogue_operands(dev, shape, dtype, bias=True, gate=False,
+                       residual=False, nchw=False, gate_dtype=torch.float32,
+                       seed=0, bias_dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fmt = (torch.contiguous_format if nchw or len(shape) == 2
+           else torch.channels_last)
+
+    def draw():
+        t = torch.randn(shape, generator=g, device=dev) * 3.0
+        return t.to(dtype).contiguous(memory_format=fmt)
+
+    n, c = shape[:2]
+    x = draw()
+    return (x, torch.randn(c, generator=g, device=dev).to(bias_dtype)
+            if bias else None,
+            torch.rand((n, c), generator=g, device=dev).to(gate_dtype)
+            if gate else None, draw() if residual else None)
+
+
+def _assert_within_one_ulp(got, want):
+    """bf16: |got - want| at most one unit in the last place of want; f32:
+    1e-5 (the kernel's f32 maths against PyTorch's ops, both rounded
+    once)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.stride() == want.stride() or want.dim() == 2
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        return
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    err = (got.float() - w).abs() / ulp
+    assert float(err.max()) <= 1.0
+
+
+def _check_epilogue(x, b, act, s, r):
+    from tfnas_tpu_torch.kernels import bias_act
+    before = bias_act.launches
+    got = bias_act.bias_act_cuda(x, b, act, s, r)
+    want = bias_act.bias_act_plain(x, b, act, s, r)
+    torch.cuda.synchronize()
+    assert bias_act.launches == before + 1
+    _assert_within_one_ulp(got, want)
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", EPILOGUE_ACTS)
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES)
+def test_bias_act_matches_plain_at_site_shapes(cuda, shape, act,
+                                               bias_dtype):
+    """The kernel against its plain version in bf16 at the served net's
+    site shapes, with a bias, a bias and a residual, a gate alone, and all
+    three: within one bf16 ulp; the bias f32 as folded or bf16 as a
+    server casts it."""
+    for i, kinds in enumerate(EPILOGUE_OPERANDS):
+        x, b, s, r = _epilogue_operands(cuda, shape, torch.bfloat16, *kinds,
+                                        seed=i, bias_dtype=bias_dtype)
+        _check_epilogue(x, b, act, s, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["odd_c", "odd_rows", "nchw", "unaligned",
+                                  "bf16_gate", "bf16_bias",
+                                  "bf16_bias_odd_c"])
+def test_bias_act_scalar_path_and_f32(cuda, case, dtype):
+    """The kernel's scalar path (C not a multiple of 8, contiguous NCHW,
+    an operand off a 16-byte boundary), a bf16 gate and a bf16 bias (on
+    both paths), in f32 and bf16, every activation, all three operands."""
+    shape = {"odd_c": (3, 30, 9, 11), "odd_rows": (5, 1001),
+             "nchw": (4, 24, 10, 10), "unaligned": (6, 64),
+             "bf16_gate": (4, 64, 14, 14), "bf16_bias": (4, 64, 14, 14),
+             "bf16_bias_odd_c": (3, 30, 9, 11)}[case]
+    for act in EPILOGUE_ACTS:
+        x, b, s, r = _epilogue_operands(
+            cuda, shape, dtype, True, True, True, nchw=case == "nchw",
+            gate_dtype=torch.bfloat16 if case == "bf16_gate"
+            else torch.float32,
+            bias_dtype=torch.bfloat16 if case.startswith("bf16_bias")
+            else torch.float32)
+        if case == "unaligned":
+            base = torch.zeros(x.numel() + 1, dtype=dtype, device=cuda)
+            base[1:] = x.reshape(-1)
+            x = base[1:].view(shape)
+            assert x.data_ptr() % 16
+        _check_epilogue(x, b, act, s, r)
+
+
+def test_bias_act_refuses_bad_input(cuda):
+    from tfnas_tpu_torch.kernels import bias_act
+    x, b, s, r = _epilogue_operands(cuda, (2, 16, 4, 4), torch.bfloat16,
+                                    True, True, True)
+    with pytest.raises(TypeError):
+        bias_act.bias_act_cuda(x.half(), b)
+    with pytest.raises(ValueError, match="channels_last"):
+        bias_act.bias_act_cuda(x.transpose(2, 3), b)
+    with pytest.raises(ValueError, match="channels_last"):
+        bias_act.bias_act_cuda(x[:, :, 0], b)
+    with pytest.raises(ValueError, match="bias"):
+        bias_act.bias_act_cuda(x, b.half())
+    with pytest.raises(ValueError, match="bias"):
+        bias_act.bias_act_cuda(x, b[:8])
+    with pytest.raises(ValueError, match="gate"):
+        bias_act.bias_act_cuda(x, b, gate=s.t())
+    with pytest.raises(ValueError, match="residual"):
+        bias_act.bias_act_cuda(x, b, residual=r.contiguous())
+    with pytest.raises(ValueError, match="residual"):
+        bias_act.bias_act_cuda(x, b, residual=r.float())
+    with pytest.raises(ValueError, match="act"):
+        bias_act.bias_act_cuda(x, b, "mish")
+    with pytest.raises(ValueError, match="CUDA"):
+        bias_act.bias_act_cuda(x.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("shape", [(4, 64, 14, 14), (3, 30, 9, 11)])
+def test_bias_act_captured_equals_eager(cuda, shape):
+    """A captured launch, replayed twice, equals the eager launch bit for
+    bit, on the vector and the scalar path; it counts as a captured node."""
+    from tfnas_tpu_torch.kernels import bias_act
+    x, b, s, r = _epilogue_operands(cuda, shape, torch.bfloat16, True, True,
+                                    True)
+    eager = bias_act.bias_act_cuda(x, b, "swish", s, r)
+    before = bias_act.counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = bias_act.bias_act_cuda(x, b, "swish", s, r)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    after = bias_act.counts()
+    assert after["captured_nodes"] == before["captured_nodes"] + 1
+    assert after["launches"] == before["launches"]
+
+
+def _draw_bn(params, state, g):
+    if "bn" in params and "scale" in params["bn"]:
+        c = params["bn"]["scale"].shape
+        params["bn"]["scale"] = 0.5 + torch.rand(c, generator=g)
+        params["bn"]["bias"] = (torch.rand(c, generator=g) - 0.5) * 0.2
+        state["bn"]["mean"] = torch.randn(c, generator=g) * 0.1
+        state["bn"]["var"] = 0.5 + torch.rand(c, generator=g)
+    for k, v in params.items():
+        if k != "bn" and isinstance(v, dict):
+            _draw_bn(v, state.setdefault(k, {}), g)
+
+
+def _tfnas_a_net():
+    import json
+    import os
+    from tfnas_tpu_torch.models.eval_net import EvalNetwork
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "configs", "tfnas_a_tpu.config")) as f:
+        return EvalNetwork.from_config(1000, json.load(f))
+
+
+def _folded_tfnas_a(dev):
+    """The BN-folded TF-NAS-A-class net on `dev` (BN statistics drawn so
+    that the fold moves every layer) and a bf16 batch of 4 at 64^2."""
+    from tfnas_tpu_torch.models import folding
+    net = _tfnas_a_net()
+    params, state = net.init(torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    _draw_bn(params, state, g)
+    fnet, fparams = folding.fold_batchnorm(net, _to(params, dev),
+                                           _to(state, dev))
+    x = torch.randn((4, 64, 64, 3), generator=g).to(dev, torch.bfloat16)
+    return fnet, fparams, x
+
+
+def test_captured_folded_forward_takes_every_epilogue(deterministic):
+    """The BN-folded TF-NAS-A-class net (configs/tfnas_a_tpu.config, bf16,
+    batch 4 at 64^2) replayed from a GraphedFn: the graph holds one kernel
+    node at each of its 89 epilogue sites, none is left unfused, replays
+    add the nodes to the replayed count, and every replay equals the
+    eager folded forward bit for bit."""
+    from tfnas_tpu_torch.kernels import bias_act
+    from tfnas_tpu_torch.search import compiled
+    fnet, fparams, x = _folded_tfnas_a(deterministic)
+    bias_act.reset_counts()
+    fn = compiled.GraphedFn(compiled.GraphFamily(deterministic),
+                            lambda x: (fnet.apply(fparams, {}, x)[0],), {},
+                            "serve")
+    outs = [fn(x)[0].clone() for _ in range(2)]
+    eager, _ = fnet.apply(fparams, {}, x)
+    torch.cuda.synchronize()
+    assert fn.epilogue_nodes == 89
+    assert bias_act.counts() == {"launches": 2 * 89, "captured_nodes": 89,
+                                 "replayed_nodes": 2 * 89, "unfused": 0}
+    for out in outs:
+        assert out.dtype == torch.bfloat16 and torch.equal(out, eager)
+
+
+def test_folded_forward_with_bf16_parameters(deterministic):
+    """The folded net with its parameters cast to bf16, as a server and
+    cost/measure.py hold them: every epilogue launches the kernel with a
+    bf16 bias, within bf16 rounding (2e-2 of the largest logit) of the
+    same forward through PyTorch's ops (an input that needs a gradient)
+    and of the forward whose biases are f32."""
+    from tfnas_tpu_torch.kernels import bias_act
+    fnet, fparams, x = _folded_tfnas_a(deterministic)
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), fparams)
+    bias_act.reset_counts()
+    with torch.no_grad():
+        got, _ = fnet.apply(p16, {}, x)
+        f32_bias, _ = fnet.apply(fparams, {}, x)
+    assert bias_act.counts() == {"launches": 2 * 89, "captured_nodes": 0,
+                                 "replayed_nodes": 0, "unfused": 0}
+    ops, _ = fnet.apply(p16, {}, x.clone().requires_grad_())
+    assert bias_act.counts()["launches"] == 2 * 89
+    assert got.dtype == torch.bfloat16
+    for want in (ops.detach(), f32_bias):
+        scale = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= (
+            2e-2 * scale)
+
+
+def test_measured_latency_in_bf16_takes_the_kernel(cuda):
+    """cost/measure.py's folded bf16 latency (parsing_model --print_lat)
+    runs its chain through the kernel, eagerly in the warm-up and from
+    the chain's CUDA graph, and reads a finite time."""
+    from tfnas_tpu_torch.cost.measure import measure_model_latency_in_ms
+    from tfnas_tpu_torch.kernels import bias_act
+    bias_act.reset_counts()
+    ms = measure_model_latency_in_ms(_tfnas_a_net(), 4, 64, torch.bfloat16,
+                                     warmup=2, iters=2, device=cuda)
+    assert math.isfinite(ms) and ms > 0
+    assert bias_act.counts() == {"launches": 2 * 89,
+                                 "captured_nodes": 2 * 89,
+                                 "replayed_nodes": 0, "unfused": 0}
+
+
+def test_coatnet_train_step_launches_no_epilogue(deterministic):
+    """A graphed and an eager CoAtNet train step: its biased sites without
+    BN (the second stem, the classifier) need gradients, so they keep
+    PyTorch's ops and count as unfused; the kernel never launches."""
+    from tfnas_tpu_torch.kernels import bias_act
+    net, params, bn = _coatnet_net()
+    bias_act.reset_counts()
+    _graphed_against_eager(deterministic, net, params, bn, [4], 64,
+                           torch.bfloat16)
+    c = bias_act.counts()
+    assert (c["launches"], c["captured_nodes"], c["replayed_nodes"]) == (
+        0, 0, 0)
+    assert c["unfused"] > 0

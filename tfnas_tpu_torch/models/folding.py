@@ -30,10 +30,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..ops.activations import apply_act
+from ..kernels import bias_act
 from ..ops.attention import RelTransformerBlock, ViTBlock
 from ..ops.batchnorm import BN_EPS
-from ..ops.layers import ConvLayer, MBConvPreNorm
+from ..ops.layers import ConvLayer, MBConvPreNorm, epilogue
 from .eval_net import EvalNetwork
 
 
@@ -175,9 +175,11 @@ class SpaceToDepthStem:
         x = x.permute(0, 2, 3, 1).reshape(n, h // 2, 2, w // 2, 2, c)
         x = x.permute(0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 4 * c)
         x = F.pad(x, (0, 0, 1, 0, 1, 0)).permute(0, 3, 1, 2)
-        y = F.conv2d(x, params["conv"]["kernel"].to(x.dtype),
-                     params["conv"]["bias"].to(x.dtype))
-        return apply_act(y, self.act_func), {}
+        kernel, bias = params["conv"]["kernel"], params["conv"]["bias"]
+        fuse = bias_act.fusable([x, kernel, bias])
+        y = F.conv2d(x, kernel.to(x.dtype),
+                     None if fuse else bias.to(x.dtype))
+        return epilogue(y, bias, self.act_func, fuse), {}
 
 
 def _s2d_stem_kernel(w):

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..kernels import bias_act
 from .activations import apply_act
 from .batchnorm import batch_norm, init_bn
 from .conv import (channel_shuffle, conv2d, global_avg_pool,
@@ -25,6 +26,64 @@ from .conv import (channel_shuffle, conv2d, global_avg_pool,
 
 def _ops_list(ops_order):
     return ops_order.split("_")
+
+
+def _weight_then_act(ops_order):
+    """True where the act op follows the weight op once the BN op, off in a
+    layer without BN, is left out: one epilogue then takes the bias and the
+    activation."""
+    return [op for op in _ops_list(ops_order) if op != "bn"] == [
+        "weight", "act"]
+
+
+def _tensors(tree):
+    """The tensor leaves of a parameter tree."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+# A BN-folded layer's epilogues (a bias and no BN between the weight and the
+# activation) run as one bias_act call each where the layer decides once per
+# apply that it can (`fuse`): its weight ops then leave the bias out, and
+# `epilogue` adds it with the activation (and the residual). Otherwise both
+# run PyTorch's ops as before, op for op.
+
+def _conv(x, conv, fuse, *, stride=1, groups=1):
+    """conv(x) + its bias, or without the bias where `fuse`."""
+    return conv2d(x, conv["kernel"], stride=stride, groups=groups,
+                  bias=None if fuse else conv.get("bias"))
+
+
+def _dense(x, lin, fuse):
+    """x @ kernel + its bias, or without the bias where `fuse`."""
+    return x @ lin["kernel"].to(x.dtype) if fuse else linear(x, lin)
+
+
+def epilogue(x, bias, act, fuse, residual=None):
+    """act(x + bias) + residual in one bias_act call where `fuse`;
+    otherwise x holds its bias already and this is apply_act (the caller
+    then adds any residual itself)."""
+    if fuse:
+        return bias_act.bias_act(x, bias, act, residual=residual)
+    return apply_act(x, act)
+
+
+def _squeeze_excite(x, se, act, fuse):
+    """x * sigmoid(W2 act(W1 mean_hw(x))) per image and channel; where
+    `fuse`, the reduce's and the expand's epilogues and the gate's
+    multiply are a bias_act call each."""
+    red, exp = se["conv_reduce"], se["conv_expand"]
+    z = epilogue(_dense(global_avg_pool(x), red, fuse), red.get("bias"),
+                  act, fuse)
+    z = _dense(z, exp, fuse)
+    if fuse:
+        return bias_act.bias_act(
+            x, gate=bias_act.bias_act(z, exp["bias"], "sigmoid"))
+    gate = torch.sigmoid(z.float()).to(x.dtype)
+    return x * gate[:, :, None, None]
 
 
 def _bn_before_weight(ops_order):
@@ -101,12 +160,16 @@ class ConvLayer:
 
     def apply(self, params, state, x, *, training=False, bn_group=None):
         new_state = dict(state)
+        conv, shuffle = params["conv"], self.has_shuffle and self.groups > 1
+        # a bias, no BN, no shuffle and the act right after the weight
+        fuse = (not self.use_bn and self.bias and not shuffle
+                and _weight_then_act(self.ops_order)
+                and bias_act.fusable([x, *_tensors(conv)]))
         for op in _ops_list(self.ops_order):
             if op == "weight":
-                x = conv2d(x, params["conv"]["kernel"], stride=self.stride,
-                           groups=self.groups,
-                           bias=params["conv"].get("bias"))
-                if self.has_shuffle and self.groups > 1:
+                x = _conv(x, conv, fuse, stride=self.stride,
+                          groups=self.groups)
+                if shuffle:
                     x = channel_shuffle(x, self.groups)
             elif op == "bn":
                 if self.use_bn:
@@ -115,7 +178,7 @@ class ConvLayer:
                         affine=self.affine, training=training,
                         group=bn_group)
             elif op == "act":
-                x = apply_act(x, self.act_func)
+                x = epilogue(x, conv.get("bias"), self.act_func, fuse)
             else:
                 raise ValueError(f"Unrecognized op: {op}")
         return x, new_state
@@ -205,9 +268,13 @@ class LinearLayer:
 
     def apply(self, params, state, x, *, training=False, bn_group=None):
         new_state = dict(state)
+        lin = params["linear"]
+        fuse = (not self.use_bn and self.bias
+                and _weight_then_act(self.ops_order)
+                and bias_act.fusable([x, *_tensors(lin)]))
         for op in _ops_list(self.ops_order):
             if op == "weight":
-                x = linear(x, params["linear"])
+                x = _dense(x, lin, fuse)
             elif op == "bn":
                 if self.use_bn:
                     x, new_state["bn"] = batch_norm(
@@ -215,7 +282,7 @@ class LinearLayer:
                         affine=self.affine, training=training,
                         group=bn_group)
             elif op == "act":
-                x = apply_act(x, self.act_func)
+                x = epilogue(x, lin.get("bias"), self.act_func, fuse)
             else:
                 raise ValueError(f"Unrecognized op: {op}")
         return x, new_state
@@ -329,11 +396,27 @@ class MBInvertedResBlock:
             affine=self.affine, training=training, group=group)
         return x
 
-    def _conv(self, x, params, name, stride=1, groups=None):
+    def _conv_bn_act(self, x, params, state, new_state, name, training,
+                     group, fuse, stride=1, groups=None, act=True,
+                     residual=None):
         conv = params[name]["conv"]
-        return conv2d(x, conv["kernel"], stride=stride,
-                      groups=self.groups if groups is None else groups,
-                      bias=conv.get("bias"))
+        x = _conv(x, conv, fuse, stride=stride,
+                  groups=self.groups if groups is None else groups)
+        x = self._bn(x, params, state, new_state, name, training, group)
+        return epilogue(x, conv.get("bias"), self.act_func if act else None,
+                         fuse, residual)
+
+    def _fuses(self, params, x, training, keep):
+        """Whether this call's epilogues run through bias_act: biases and
+        no BN, no shuffle, no drop-connect, and nothing that needs a
+        gradient. Its sites: expand, depthwise, the SE's reduce, expand
+        and gate, project."""
+        dropping = (self.drop_connect_rate > 0.0 and training
+                    and keep is not None and self.has_residual)
+        sites = int(self.has_expand) + 2 + 3 * int(self.has_se)
+        return (not self.use_bn and self.bias and not dropping
+                and not (self.has_shuffle and self.groups > 1)
+                and bias_act.fusable([x, *_tensors(params)], sites))
 
     def apply(self, params, state, x, *, training=False, keep=None,
               bn_group=None):
@@ -341,33 +424,29 @@ class MBInvertedResBlock:
         training with drop_connect_rate > 0 and a residual); bn_group: the
         process group of cross-replica BN."""
         new_state = {k: dict(v) for k, v in state.items()}
+        fuse = self._fuses(params, x, training, keep)
         shuffle = self.has_shuffle and self.groups > 1
         res = x
         if self.has_expand:
-            x = self._conv(x, params, "inverted_bottleneck")
-            x = self._bn(x, params, state, new_state, "inverted_bottleneck",
-                         training, bn_group)
-            x = apply_act(x, self.act_func)
+            x = self._conv_bn_act(x, params, state, new_state,
+                                  "inverted_bottleneck", training, bn_group,
+                                  fuse)
             if shuffle:
                 x = channel_shuffle(x, self.groups)
-        x = self._conv(x, params, "depth_conv", self.stride,
-                       self.mid_channels)
-        x = self._bn(x, params, state, new_state, "depth_conv", training,
-                     bn_group)
-        x = apply_act(x, self.act_func)
+        x = self._conv_bn_act(x, params, state, new_state, "depth_conv",
+                              training, bn_group, fuse, self.stride,
+                              self.mid_channels)
         if self.has_se:
-            se = params["squeeze_excite"]
-            z = apply_act(linear(global_avg_pool(x), se["conv_reduce"]),
-                          self.act_func)
-            z = linear(z, se["conv_expand"])
-            gate = torch.sigmoid(z.float()).to(x.dtype)
-            x = x * gate[:, :, None, None]
-        x = self._conv(x, params, "point_linear")
-        x = self._bn(x, params, state, new_state, "point_linear", training,
-                     bn_group)
+            x = _squeeze_excite(x, params["squeeze_excite"], self.act_func,
+                                fuse)
+        # a fused projection's epilogue adds the residual too
+        x = self._conv_bn_act(
+            x, params, state, new_state, "point_linear", training, bn_group,
+            fuse, act=False,
+            residual=res if fuse and self.has_residual else None)
         if shuffle:
             x = channel_shuffle(x, self.groups)
-        if self.has_residual:
+        if self.has_residual and not fuse:
             if self.drop_connect_rate > 0.0 and training and keep is not None:
                 x = drop_connect(x, keep, self.drop_connect_rate)
             x = x + res
@@ -467,44 +546,58 @@ class MBConvPreNorm:
         return params, state
 
     def _conv_bn_act(self, x, params, state, new_state, name, training,
-                     group, stride=1, groups=1, act=True):
+                     group, fuse, stride=1, groups=1, act=True,
+                     residual=None):
         conv = params[name]["conv"]
-        x = conv2d(x, conv["kernel"], stride=stride, groups=groups,
-                   bias=conv.get("bias"))
+        x = _conv(x, conv, fuse, stride=stride, groups=groups)
         if "bn" in params[name]:
             x, new_state.setdefault(name, {})["bn"] = batch_norm(
                 x, params[name]["bn"], state[name]["bn"], affine=True,
                 training=training, group=group)
-        return apply_act(x, self.act_func) if act else x
+        return epilogue(x, conv.get("bias"), self.act_func if act else None,
+                         fuse, residual)
+
+    def _fuses(self, params, x, training, keep):
+        """Whether this call's epilogues run through bias_act: no BN (a
+        bias on every convolution), no drop-connect, and nothing that
+        needs a gradient. Its sites: the shortcut's projection, expand,
+        depthwise, the SE's reduce, expand and gate, project."""
+        dropping = (self.drop_connect_rate > 0.0 and training
+                    and keep is not None)
+        return (not self.use_bn and not dropping
+                and bias_act.fusable([x, *_tensors(params)],
+                                     int(self.has_proj) + 6))
 
     def apply(self, params, state, x, *, training=False, keep=None,
               bn_group=None):
         """keep: the [N] 0/1 drop-connect draw (used when training with a
         rate > 0); bn_group: the process group of cross-replica BN."""
         new_state = {k: dict(v) for k, v in state.items()}
+        fuse = self._fuses(params, x, training, keep)
         sc = x
         if self.stride > 1:
             sc = F.max_pool2d(sc, self.stride, self.stride)
         if self.has_proj:
             sc = self._conv_bn_act(sc, params, state, new_state, "shortcut",
-                                   training, bn_group, act=False)
+                                   training, bn_group, fuse, act=False)
         h = x
         if "pre_norm" in params:
             h, new_state["pre_norm"]["bn"] = batch_norm(
                 h, params["pre_norm"]["bn"], state["pre_norm"]["bn"],
                 affine=True, training=training, group=bn_group)
         h = self._conv_bn_act(h, params, state, new_state,
-                              "inverted_bottleneck", training, bn_group,
+                              "inverted_bottleneck", training, bn_group, fuse,
                               stride=self.stride)
         h = self._conv_bn_act(h, params, state, new_state, "depth_conv",
-                              training, bn_group, groups=self.mid_channels)
-        se = params["squeeze_excite"]
-        z = apply_act(linear(global_avg_pool(h), se["conv_reduce"]),
-                      self.act_func)
-        gate = torch.sigmoid(linear(z, se["conv_expand"]).float())
-        h = h * gate.to(h.dtype)[:, :, None, None]
+                              training, bn_group, fuse,
+                              groups=self.mid_channels)
+        h = _squeeze_excite(h, params["squeeze_excite"], self.act_func, fuse)
+        # a fused projection's epilogue adds the shortcut too
         h = self._conv_bn_act(h, params, state, new_state, "point_linear",
-                              training, bn_group, act=False)
+                              training, bn_group, fuse, act=False,
+                              residual=sc if fuse else None)
+        if fuse:
+            return h, new_state
         if self.drop_connect_rate > 0.0 and training and keep is not None:
             h = drop_connect(h, keep, self.drop_connect_rate)
         return sc + h, new_state

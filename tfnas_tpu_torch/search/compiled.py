@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import fused_dw
+from ..kernels import bias_act, fused_dw
 from ..utils import trace
 
 # every capture of the process: how many, and their seconds (warm-up,
@@ -155,6 +155,7 @@ class GraphedFn:
         self.name, self.warmup = name, warmup
         self.graph = None
         self.nodes = {}        # fused kernel nodes by stride
+        self.epilogue_nodes = 0  # bias_act kernel nodes
         self.build_s = None    # warm-up + capture + instantiation, seconds
         self.replays = 0
 
@@ -185,6 +186,7 @@ class GraphedFn:
 
         graph = torch.cuda.CUDAGraph()
         before = dict(fused_dw.captured)
+        epilogues = bias_act.captured
         with torch.cuda.graph(graph, pool=fam.pool, stream=fam.stream,
                               capture_error_mode="thread_local"):
             out = self.fn(*args)
@@ -196,6 +198,7 @@ class GraphedFn:
             torch._foreach_copy_(dst, src)
             del out, src
         self.nodes = {s: fused_dw.captured[s] - before[s] for s in before}
+        self.epilogue_nodes = bias_act.captured - epilogues
         self.graph, self.spec, self.static = graph, spec, static
         n_out = len(self.writes) + len(homes)
         self.outputs = tuple(args[self.writes[i]] if i in self.writes
@@ -218,6 +221,7 @@ class GraphedFn:
             self.replays += 1
             for s, n in self.nodes.items():
                 fused_dw.replayed[s] += n
+            bias_act.replayed += self.epilogue_nodes
             return self.outputs
 
     def _load(self, leaves):
