@@ -243,6 +243,7 @@ def _deadline(signum, frame):
 
 def phase_env(torch, fused_dw, card, bias_act):
     import concurrent.futures as cf
+    from tfnas_tpu_torch.kernels import nvcc
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -277,7 +278,7 @@ def phase_env(torch, fused_dw, card, bias_act):
           "python": sys.version.split()[0],
           "kernel_build_s": round(wall, 3),
           "build_s": {k: v["seconds"] for k, v in built.items()},
-          "nvcc_flags": " ".join(fused_dw.NVCC_FLAGS),
+          "nvcc_flags": " ".join(nvcc.SM90A_FLAGS),
           "ptxas": built["fused_dw"]["log"][-800:],
           "ptxas_image_decode": built["image_decode"]["log"][-800:],
           "ptxas_bias_act": built["bias_act"]["log"][-800:],
@@ -892,7 +893,7 @@ def phase_capture(torch, fused_dw, tmpdir):
         "base": torch.tensor(float(lut["base"]), device=dev)})
     del params, arch
     eager = make_search_steps(net, **kw)
-    capt = make_search_steps(net, capture=True, family=fam, **kw)
+    capt = make_search_steps(net, family=fam, **kw)
     data = device_batches(BATCH, 12, gen, 100, 224, torch.bfloat16)
     batches = [next(data) for _ in range(6)]
 
@@ -948,7 +949,7 @@ def phase_capture(torch, fused_dw, tmpdir):
             state[k] = v
     peak_capt = torch.cuda.max_memory_allocated() - base_mem
     graphs = {g.name: g for g in fam.graphs}
-    nodes = {n: g.nodes for n, g in graphs.items()}
+    nodes = {n: g.nodes["fused_dw"] for n, g in graphs.items()}
     emit({"phase": "capture", "step": "graphs",
           "build_s": {n: g.build_s for n, g in graphs.items()},
           "fused_nodes_by_stride": nodes,
@@ -1401,14 +1402,15 @@ def _folds(torch, np, net, state):
                                                 for v in t]
         p16 = tree_map(lambda t: t.to(torch.bfloat16), fparams)
         bias_act.reset_counts()
-        graphed = compiled.GraphedFn(
-            compiled.GraphFamily(dev),
-            lambda xx: (folded.apply(p16, {}, xx)[0],), {}, "folded")
+        graphed = compiled.AutoGraphed(
+            lambda xx: (folded.apply(p16, {}, xx)[0],), {}, "folded",
+            compiled.GraphFamily(dev))
         for _ in range(2):
             graphed(x)
         torch.cuda.synchronize()
         epi = {"sites": _epilogue_sites(folded),
-               "graph_nodes": graphed.epilogue_nodes, **bias_act.counts()}
+               "graph_nodes": graphed.graphed.nodes["bias_act"]["epilogue"],
+               **bias_act.counts()}
         rec["epilogue"] = epi
         if epi["graph_nodes"] != epi["sites"] or epi["unfused"]:
             failures.append(("epilogue", epi))
@@ -1489,9 +1491,9 @@ def _vit_branch_ms(torch, net, params, dtype):
 
 
 def _release(torch):
-    """Free the card memory of graphs no longer referenced: a GraphFamily
-    and its graphs refer to each other, so only the cycle collector frees
-    them (a driver run's graphs hold some 10 GB of private pools)."""
+    """Free the card memory of graphs no longer referenced, those a
+    reference cycle keeps too (a train_search run's graphs hold some 10 GB
+    of private pools)."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -1558,7 +1560,7 @@ def phase_hybrid(torch, fused_dw, tmpdir):
     n_params = sum(p.numel() for p in tree_leaves(params)) / 1e6
     del params, arch
     eager = make_search_steps(net, **kw)
-    capt = make_search_steps(net, capture=True, family=fam, **kw)
+    capt = make_search_steps(net, family=fam, **kw)
     data = device_batches(BATCH, 6, gen, 100, 224, torch.bfloat16)
     batches = [next(data) for _ in range(6)]
     torch.cuda.synchronize()
@@ -1620,7 +1622,7 @@ def phase_hybrid(torch, fused_dw, tmpdir):
     for i, kind in enumerate(("warmup", "weight", "arch", "weight", "arch")):
         check(kind, i, "start")
     graphs = {g.name: g for g in fam.graphs}
-    nodes = {n: dict(g.nodes) for n, g in graphs.items()}
+    nodes = {n: dict(g.nodes["fused_dw"]) for n, g in graphs.items()}
     emit({"phase": "hybrid", "step": "graphs",
           "build_s": {n: g.build_s for n, g in graphs.items()},
           "fused_nodes_by_stride": nodes, "eager_launches": launches,
@@ -1798,7 +1800,7 @@ def phase_parallel(torch, fused_dw, tmpdir):
     from tfnas_tpu_torch.search.bisample import (gumbel_uniform,
                                                  sample_gumbel_indices,
                                                  sample_random_excluding)
-    from tfnas_tpu_torch.search.compiled import GraphedFn, GraphFamily
+    from tfnas_tpu_torch.search.compiled import AutoGraphed, GraphFamily
     from tfnas_tpu_torch.search.parser import get_mc_num_dddict
     from tfnas_tpu_torch.search.train_step import make_search_steps
 
@@ -1875,8 +1877,7 @@ def phase_parallel(torch, fused_dw, tmpdir):
     s = group_inputs(net, mesh.local_groups, fam)
     kw = dict(num_classes=100, targets=PARETO_TARGETS)
     eager = pareto.make_pareto_search_steps(net, mesh, **kw)
-    capt = pareto.make_pareto_search_steps(net, mesh, capture=True,
-                                           family=fam, **kw)
+    capt = pareto.make_pareto_search_steps(net, mesh, family=fam, **kw)
     torch.cuda.synchronize()
     emit({"phase": "parallel", "step": "setup", "groups": G,
           "targets_ms": list(PARETO_TARGETS), "init_s":
@@ -1926,7 +1927,7 @@ def phase_parallel(torch, fused_dw, tmpdir):
                 and all(math.isfinite(v) for v in rec["loss"])):
             failures.append(rec)
         s["state"] = cst
-    nodes = {k: {st: sum(gr.nodes[st] for gr in fam.graphs
+    nodes = {k: {st: sum(gr.nodes["fused_dw"][st] for gr in fam.graphs
                          if gr.name == f"{k}_step") for st in (1, 2)}
              for k in ("weight", "arch")}
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2040,8 +2041,8 @@ def phase_parallel(torch, fused_dw, tmpdir):
         for name, group in (("none", None), ("nccl", world)):
             train, _ = train_dp.make_eval_steps(enet, num_classes=1000,
                                                 group=group, capture=False)
-            graphed = GraphedFn(GraphFamily(dev), train, {0: 0},
-                                f"dp_train_{name}")
+            graphed = AutoGraphed(train, {0: 0}, f"dp_train_{name}",
+                                  GraphFamily(dev))
             for mode, fn in (("eager", train), ("captured", graphed)):
                 new, m = fn(fresh(), x, y, 0.1, keep)
                 dp[(name, mode)] = _clone(torch, [new[:3], m])
@@ -2053,7 +2054,7 @@ def phase_parallel(torch, fused_dw, tmpdir):
         dp_ms = collections.defaultdict(list)
         for name in ("none", "nccl", "nccl", "none"):
             dp_ms[name].append(_events_ms(
-                torch, dp_graphs[name].graph.replay, 3))
+                torch, dp_graphs[name].graphed.graph.replay, 3))
         del dp, dp_graphs, graphed, train, st0
         _release(torch)
 
@@ -2068,7 +2069,7 @@ def phase_parallel(torch, fused_dw, tmpdir):
                 pnet = SuperNetwork(100, bn_group=m_.data_group)
                 steps = pareto.make_pareto_search_steps(
                     pnet, m_, num_classes=100, targets=PARETO_TARGETS[:1],
-                    capture=pfam is not None, family=pfam)
+                    family=pfam)
                 st_in = _clone(torch, base)
                 if pfam is not None:
                     st_in = pfam.adopt(st_in)
@@ -2152,7 +2153,7 @@ def phase_lowerings(torch, fused_dw, tmpdir):
     from tfnas_tpu_torch.search.bisample import (gumbel_uniform,
                                                  sample_gumbel_indices,
                                                  sample_random_excluding)
-    from tfnas_tpu_torch.search.compiled import GraphedFn, GraphFamily
+    from tfnas_tpu_torch.search.compiled import AutoGraphed, GraphFamily
     from tfnas_tpu_torch.search.parser import get_mc_num_dddict
     from tfnas_tpu_torch.search.train_step import (adam_init,
                                                    make_search_steps,
@@ -2246,7 +2247,7 @@ def phase_lowerings(torch, fused_dw, tmpdir):
     for name, net in nets.items():  # a family (one graph pool) each
         r0 = torch.cuda.memory_reserved()
         fam = GraphFamily(dev)
-        capt[name] = make_search_steps(net, capture=True, family=fam, **kw)
+        capt[name] = make_search_steps(net, family=fam, **kw)
         cst[name] = fam.adopt(start)  # static copies of the state
         outs[name] = run_steps(capt[name], cst[name])
         reserved[name] = (torch.cuda.memory_reserved() - r0) / 1e9
@@ -2263,8 +2264,8 @@ def phase_lowerings(torch, fused_dw, tmpdir):
             "check": f"{kind}: captured remat vs captured plain"},
             {"all": _tree_err(torch, outs["remat"][i], outs["plain"][i])})
     del outs
-    nodes = {name: {k: dict(getattr(capt[name], f"{k}_step").graphed.nodes)
-                    for k in KINDS} for name in nets}
+    nodes = {name: {k: dict(getattr(capt[name], f"{k}_step").graphed.nodes[
+        "fused_dw"]) for k in KINDS} for name in nets}
     counts.update({f"remat_{k}_step_nodes": nodes["remat"][k]
                    for k in KINDS})
 
@@ -2294,7 +2295,7 @@ def phase_lowerings(torch, fused_dw, tmpdir):
         eager = make_search_steps(net, **kw)
         want, wm = call(eager, "arch", dict(start, arch=_clone(torch, arch),
                                             opt=adam_init(arch)), 2)
-        steps = make_search_steps(net, capture=True, family=fam, **kw)
+        steps = make_search_steps(net, family=fam, **kw)
         st = dict(shared, arch=fam.adopt(_clone(torch, arch)),
                   opt=fam.adopt(adam_init(arch)))
         got, gm = call(steps, "arch", st, 2)
@@ -2304,7 +2305,7 @@ def phase_lowerings(torch, fused_dw, tmpdir):
                        {"all": _tree_err(torch, [got, gm], [want, wm])})
         res[name] = {"steps": steps, "st": st, "loss_a": float(wm["loss_a"]),
                      "log_alphas": want["arch"]["log_alphas"],
-                     "nodes": dict(steps.arch_step.graphed.nodes)}
+                     "nodes": dict(steps.arch_step.graphed.nodes["fused_dw"])}
     ref = res["einsum"]
     soft = {"phase": "lowerings", "step": "soft", "variants": {}}
     for name, r in res.items():
@@ -2334,7 +2335,7 @@ def phase_lowerings(torch, fused_dw, tmpdir):
     # cond_width_split: eager only
     cws = SuperNetwork(100, cond_width_split=True)
     try:
-        make_search_steps(cws, capture=True, **kw)
+        make_search_steps(cws, family=GraphFamily(dev), **kw)
         failures.append("capture of a cond_width_split net was not refused")
         refused = False
     except ValueError:
@@ -2405,17 +2406,19 @@ def phase_lowerings(torch, fused_dw, tmpdir):
         return value_and_grad(loss, p)
     fam = GraphFamily(dev)
     args = fam.adopt([start["params"], x, y])
-    graphs = {"multi": GraphedFn(fam, multi_loss, {}, "multi_fwd_bwd"),
-              "pair": GraphedFn(fam, pair_loss, {}, "pair_fwd_bwd")}
+    graphs = {"multi": AutoGraphed(multi_loss, {}, "multi_fwd_bwd", fam),
+              "pair": AutoGraphed(pair_loss, {}, "pair_fwd_bwd", fam)}
     got = {n: _clone(torch, g(*args)) for n, g in graphs.items()}
-    counts["multi_fwd_bwd_nodes"] = dict(graphs["multi"].nodes)
+    counts["multi_fwd_bwd_nodes"] = dict(
+        graphs["multi"].graphed.nodes["fused_dw"])
     d_loss = abs(got["multi"][0][0].item() - got["pair"][0][0].item()) / abs(
         got["pair"][0][0].item())
     rec = {"phase": "lowerings", "step": "multi",
            "f32_logits_max_abs_err": err, "tol": tol,
            "forward_launches": {"multi": multi_launches,
                                 "pair": pair_launches},
-           "fused_nodes": {n: g.nodes for n, g in graphs.items()},
+           "fused_nodes": {n: g.graphed.nodes["fused_dw"]
+                           for n, g in graphs.items()},
            "bf16_loss_rel_vs_pair": d_loss,
            "bf16_grad_max_abs_err_vs_pair": _tree_err(
                torch, got["multi"][1], got["pair"][1]),

@@ -1,8 +1,8 @@
 """The port's cost slice on the CPU: the latency chain (cost/measure.py),
-save_lat_lookup, the table maker tfnas_tpu_torch.make_lat_lut against
-make_lat_lut_tpu.py, and the port's bench on the tiny space. The measured
-numbers here are host times of the CPU; the tests check the plumbing, the
-schema and the analytic formulas (exact), not the values."""
+save_lat_lookup and the table maker tfnas_tpu_torch.make_lat_lut against
+make_lat_lut_tpu.py. The measured numbers here are host times of the CPU;
+the tests check the plumbing, the schema and the analytic formulas
+(exact), not the values."""
 
 import json
 import math
@@ -15,7 +15,6 @@ import torch
 import make_lat_lut_tpu as jlut
 from tfnas_tpu.cost import lut as jcost
 from tfnas_tpu.models import search_space as jss
-from tfnas_tpu_torch import bench
 from tfnas_tpu_torch import make_lat_lut as tlut
 from tfnas_tpu_torch.cost import lut as tcost
 from tfnas_tpu_torch.cost.measure import (Chain, measure_latency_in_ms,
@@ -133,34 +132,12 @@ def test_measured_lut_schema_and_resume(tmp_path, capsys):
     assert jcost.load_lat_lookup(out + ".hybrid").keys() == hyb.keys()
 
 
-def test_bench_prints_phases_and_summary_and_keeps_its_deadline(capsys):
-    args = ["--device", "cpu", "--space", "tiny", "--image_size", "32",
-            "--batch_size", "4", "--num_classes", "10", "--n_timed", "2",
-            "--warm", "1", "--eval_batch", "2", "--eval_iters", "2"]
-    summary = bench.main(args)
-    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
-    assert [l.get("phase") for l in lines] == ["search", "search", "eval",
-                                               None]
-    assert lines[-1] == summary and summary["complete"]
-    assert summary["metric"] == "supernet_search_weight_steps_per_sec"
-    assert summary["value"] > 0 and summary["vs_baseline"] > 0
-    assert set(summary["secondary"]["serving_graphs"]) == {"folded", "s2d"}
-    assert all(l["finite"] for l in lines[:2])
-
-    cut = bench.main(args + ["--deadline", "0"])
-    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
-    assert lines[0]["cut"] and lines[-1] == cut
-    assert not cut["complete"] and cut["value"] is None
-
-
 def test_new_entry_points_refuse_cuda_without_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
     out = str(tmp_path / "lut.pkl")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tlut.main(["--mode", "measure", "--output", out])
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        bench.main(["--space", "tiny"])
     assert not os.listdir(tmp_path)
     # the analytic table needs no device
     lut = tlut.main(["--output", out])

@@ -25,14 +25,14 @@ version (sizes whose plan holds and sweeps, unaligned spans, two launches
 in one call, images with and without contrast in one batch), nvJPEG
 against PIL, the entries nvJPEG refuses, ImageList on the
 card, and a card list whose library does not build. And the port's spans
-(utils/trace.py): a GraphedFn's call, argument, replay and capture spans,
-no device event under a stream capture, and the eager train step's
+(utils/trace.py): an AutoGraphed's call, argument, replay and capture
+spans, no device event under a stream capture, and the eager train step's
 phases in a profiled Chrome trace with their device times. And the fused
 epilogue kernel (kernels/bias_act.py) against its plain version at the
 served net's site shapes, every activation, on its scalar path (odd C,
 NCHW, unaligned operands) and in f32; its wrapper's refusals; a captured
 launch against the eager one; the BN-folded TF-NAS-A-class forward
-replayed from a GraphedFn with a kernel node at each of its 89 epilogue
+replayed from an AutoGraphed with a kernel node at each of its 89 epilogue
 sites; that forward with bf16 parameters (bf16 biases) and
 cost/measure.py's bf16 latency through the kernel; a CoAtNet train step
 that never launches it.
@@ -64,9 +64,9 @@ from tfnas_tpu_torch.search.train_step import tree_leaves, tree_map
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU version")
-    # a GraphFamily and its graphs form a reference cycle: free those of
-    # earlier tests now, since a graph freed by a collection that runs
-    # inside a capture invalidates that capture
+    # free the graphs of earlier tests that a reference cycle keeps (a
+    # test's own closures, say) now, since a graph freed by a collection
+    # that runs inside a capture invalidates that capture
     gc.collect()
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
@@ -416,7 +416,7 @@ def test_captured_steps_match_eager(deterministic):
     kw = dict(num_classes=10, lambda_lat=0.1, target_lat=0.02)
     eager = make_search_steps(net, **kw)
     fam = GraphFamily(dev)
-    capt = make_search_steps(net, capture=True, family=fam, **kw)
+    capt = make_search_steps(net, family=fam, **kw)
     est = dict(st)
     cst = fam.adopt(dict(st))
     for i, kind in enumerate(("warmup", "weight", "arch", "warmup",
@@ -432,8 +432,8 @@ def test_captured_steps_match_eager(deterministic):
         est.update(want)
         cst.update(got)
         graph = {g.name: g for g in fam.graphs}[f"{kind}_step"]
-        assert all(graph.nodes.values()) and tfused.replayed == {
-            s: before[s] + n for s, n in graph.nodes.items()}
+        assert all(graph.nodes["fused_dw"].values()) and tfused.replayed == {
+            s: before[s] + n for s, n in graph.nodes["fused_dw"].items()}
     assert [g.name for g in fam.graphs] == ["warmup_step", "weight_step",
                                             "arch_step"]
     assert all(g.replays == 2 for g in fam.graphs)
@@ -458,7 +458,7 @@ def test_captured_draws_match_eager(deterministic):
     outs, gens = {}, {}
     fam = GraphFamily(dev)
     for name, kwargs in (("eager", {}),
-                         ("captured", dict(capture=True, family=fam))):
+                         ("captured", dict(family=fam))):
         run = make_scanned_search_iter(net, **kwargs, **kw)
         gen = torch.Generator(device=dev).manual_seed(5)
         out = None
@@ -896,7 +896,7 @@ def test_pareto_steps_on_card_match_cpu(cuda):
 def _nccl_checks(dev, world):
     from tfnas_tpu_torch.parallel import pareto, train_dp
     from tfnas_tpu_torch.parallel.mesh import ParetoMesh
-    from tfnas_tpu_torch.search.compiled import GraphedFn, GraphFamily
+    from tfnas_tpu_torch.search.compiled import AutoGraphed, GraphFamily
     enet, *rest = _eval_net()
     params, bn, x, y = _to(rest, dev)
     keep = enet.draw_keep(len(y), torch.Generator(device=dev).manual_seed(2))
@@ -906,7 +906,7 @@ def _nccl_checks(dev, world):
         train, _ = train_dp.make_eval_steps(
             enet, num_classes=10, compute_dtype=torch.float32, group=group,
             capture=False)
-        graphed = GraphedFn(GraphFamily(dev), train, {0: 0}, name)
+        graphed = AutoGraphed(train, {0: 0}, name, GraphFamily(dev))
         for mode, fn in (("eager", train), ("captured", graphed)):
             st = train_dp.EvalTrainState(
                 params, bn, tree_map(torch.zeros_like, params), 0)
@@ -924,8 +924,7 @@ def _nccl_checks(dev, world):
                                bn_group=mesh.data_group)
             fam = GraphFamily(dev) if mode == "captured" else None
             steps = pareto.make_pareto_search_steps(
-                net, mesh, num_classes=10, targets=[0.02],
-                capture=fam is not None, family=fam)
+                net, mesh, num_classes=10, targets=[0.02], family=fam)
             inp = _pareto_inputs(net, dev)
             inp = {k: v[:1] if isinstance(v, list) else v
                    for k, v in inp.items()}
@@ -977,7 +976,7 @@ def test_remat_captured_equals_eager_and_no_remat(deterministic):
                                  ("no_remat", False, True)):
         net, st, data = _tiny_state(dev, remat_blocks=remat)
         fam = GraphFamily(dev) if capture else None
-        steps = make_search_steps(net, capture=capture, family=fam, **kw)
+        steps = make_search_steps(net, family=fam, **kw)
         if fam is not None:
             st = fam.adopt(st)
         outs = []
@@ -989,7 +988,7 @@ def test_remat_captured_equals_eager_and_no_remat(deterministic):
             st.update(got)
         runs[name] = outs
         if fam is not None:
-            nodes[name] = {g.name: g.nodes for g in fam.graphs}
+            nodes[name] = {g.name: g.nodes["fused_dw"] for g in fam.graphs}
     for other in ("eager", "no_remat"):
         for a, b in zip(runs["captured"], runs[other]):
             _assert_trees_equal(a, b)
@@ -1342,14 +1341,14 @@ def tracing():
 
 
 def test_graphed_fn_spans(cuda, tracing):
-    """A GraphedFn's first call holds its capture (whose time is build_s
+    """An AutoGraphed's first call holds its capture (whose time is build_s
     and adds to the process's capture total); every call is
     tfnas.graph.call around its args and replay, each with the graph's
     name as its id."""
     from tfnas_tpu_torch.search import compiled
     trace = tracing
     fam = compiled.GraphFamily(cuda)
-    fn = compiled.GraphedFn(fam, lambda x: (x * 2 + 1,), {}, "double")
+    fn = compiled.AutoGraphed(lambda x: (x * 2 + 1,), {}, "double", fam)
     before = dict(compiled.captures)
     x = torch.arange(8.0, device=cuda)
     for _ in range(3):
@@ -1367,10 +1366,10 @@ def test_graphed_fn_spans(cuda, tracing):
         assert s["parent"] == (None if s["name"] == "tfnas.graph.call"
                                else "tfnas.graph.call")
     (cap,) = snap["host_ms"]["tfnas.graph.capture"]
-    assert fn.build_s == pytest.approx(cap / 1e3)
+    assert fn.graphed.build_s == pytest.approx(cap / 1e3)
     assert compiled.captures["count"] == before["count"] + 1
     assert compiled.captures["seconds"] == pytest.approx(
-        before["seconds"] + fn.build_s)
+        before["seconds"] + fn.graphed.build_s)
     assert snap["device_ms"] == {}   # host spans only
 
 
@@ -1491,11 +1490,11 @@ def _assert_within_one_ulp(got, want):
 
 def _check_epilogue(x, b, act, s, r):
     from tfnas_tpu_torch.kernels import bias_act
-    before = bias_act.launches
+    before = bias_act.counts()["launches"]
     got = bias_act.bias_act_cuda(x, b, act, s, r)
     want = bias_act.bias_act_plain(x, b, act, s, r)
     torch.cuda.synchronize()
-    assert bias_act.launches == before + 1
+    assert bias_act.counts()["launches"] == before + 1
     _assert_within_one_ulp(got, want)
 
 
@@ -1625,7 +1624,7 @@ def _folded_tfnas_a(dev):
 
 def test_captured_folded_forward_takes_every_epilogue(deterministic):
     """The BN-folded TF-NAS-A-class net (configs/tfnas_a_tpu.config, bf16,
-    batch 4 at 64^2) replayed from a GraphedFn: the graph holds one kernel
+    batch 4 at 64^2) replayed from an AutoGraphed: the graph holds one kernel
     node at each of its 89 epilogue sites, none is left unfused, replays
     add the nodes to the replayed count, and every replay equals the
     eager folded forward bit for bit."""
@@ -1633,13 +1632,12 @@ def test_captured_folded_forward_takes_every_epilogue(deterministic):
     from tfnas_tpu_torch.search import compiled
     fnet, fparams, x = _folded_tfnas_a(deterministic)
     bias_act.reset_counts()
-    fn = compiled.GraphedFn(compiled.GraphFamily(deterministic),
-                            lambda x: (fnet.apply(fparams, {}, x)[0],), {},
-                            "serve")
+    fn = compiled.AutoGraphed(lambda x: (fnet.apply(fparams, {}, x)[0],), {},
+                              "serve", compiled.GraphFamily(deterministic))
     outs = [fn(x)[0].clone() for _ in range(2)]
     eager, _ = fnet.apply(fparams, {}, x)
     torch.cuda.synchronize()
-    assert fn.epilogue_nodes == 89
+    assert fn.graphed.nodes["bias_act"] == {"epilogue": 89}
     assert bias_act.counts() == {"launches": 2 * 89, "captured_nodes": 89,
                                  "replayed_nodes": 2 * 89, "unfused": 0}
     for out in outs:

@@ -12,6 +12,7 @@ differently); random f32 logits have no ties, so the metrics here compare
 the same sets."""
 
 from collections import OrderedDict
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,7 @@ from tfnas_tpu_torch.convert import (eval_state_from_jax, params_from_jax,
 from tfnas_tpu_torch.models import search_space as tss
 from tfnas_tpu_torch.models.eval_net import EvalNetwork as TNet
 from tfnas_tpu_torch.parallel import train_dp as tdp
+from tfnas_tpu_torch.search import compiled
 from tfnas_tpu_torch.search.compiled import leaves_of
 from tfnas_tpu_torch.utils import metrics as tmetrics
 from test_torch_eval_net import jax_keep_draws
@@ -197,23 +199,31 @@ def _assert_identical(a, b):
 
 @pytest.fixture
 def fake_card(monkeypatch):
-    """Every tensor reads as on the card, and GraphedFn is a stand-in that
-    records its making and its calls and runs the step eagerly: the
-    choice between graph and eager step, followed on the CPU."""
+    """Every tensor reads as on the card, and the capture is a stand-in
+    that records its making and its replays, and whose replay runs the
+    step eagerly on the static buffers that the arguments were copied
+    into: the choice between graph and eager step, followed on the CPU."""
     made = []
 
-    class Graphed:
-        def __init__(self, family, fn, writes, name):
-            self.fn, self.calls = fn, 0
-            made.append((writes, name, self))
+    def capture(family, fn, writes, name, spec, leaves):
+        g = SimpleNamespace(name=name, spec=spec, nodes={}, replays=0,
+                            calls=0, static=[
+                                l.detach().clone()
+                                if isinstance(l, torch.Tensor) else
+                                torch.tensor(l, dtype=torch.int64
+                                             if isinstance(l, int)
+                                             else torch.float32)
+                                for l in leaves])
 
-        def __call__(self, *args):
-            self.calls += 1
-            return self.fn(*args)
+        def replay():
+            g.calls += 1
+            g.outputs = fn(*compiled._unflatten(spec, iter(g.static)))
+        g.graph = SimpleNamespace(replay=replay)
+        made.append((writes, name, g))
+        return g
 
-    monkeypatch.setattr(tdp, "on_card", lambda x: True)
-    monkeypatch.setattr(tdp, "GraphFamily", lambda device: None)
-    monkeypatch.setattr(tdp, "GraphedFn", Graphed)
+    monkeypatch.setattr(compiled, "on_card", lambda tree: True)
+    monkeypatch.setattr(compiled, "capture", capture)
     return made
 
 
@@ -267,6 +277,6 @@ def test_train_step_never_graphs_with_a_group_or_capture_false(setup,
     state, x, y, keep = _step_inputs(setup)
     for _ in range(2):
         assert step(state, x, y, 0.2, keep) == ("state", {})
-    assert not step.capture and fake_card == [] and step.graphed is None
+    assert step.family is None and fake_card == [] and step.graphed is None
     assert len(calls) == 2 and calls[0][1] is x
     assert (step.replays, step.eager_calls) == (0, 2)

@@ -165,3 +165,36 @@ def test_wrapper_refuses_cpu_and_bad_input():
     with pytest.raises(ValueError):
         tfused.fused_dw_forward(x.to("meta"), w, scale, offset, 1, "relu")
     assert tfused.launches == {1: 0, 2: 0}
+
+
+def test_count_functions_keep_their_shapes(monkeypatch):
+    """fused_dw and bias_act count through kernels/nvcc.LaunchCounter,
+    registered under their names for the graph module: a launch on a
+    stream under capture counts as a node, any other as an eager launch,
+    and the count functions return what they always have, by stride for
+    fused_dw and as plain numbers for bias_act."""
+    from tfnas_tpu_torch.kernels import bias_act
+    from tfnas_tpu_torch.utils import trace
+    dw = trace.launch_counters["fused_dw"]
+    ep = trace.launch_counters["bias_act"]
+    assert dw.launches is tfused.launches and dw.replayed is tfused.replayed
+    tfused.reset_launches()
+    bias_act.reset_counts()
+    for capturing in (False, True, True):
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                            lambda capturing=capturing: capturing)
+        dw.count(2)
+        ep.count("epilogue")
+    dw.replayed[1] += 5
+    ep.replayed["epilogue"] += 3
+    assert tfused.launch_counts() == {"launches": {1: 0, 2: 1},
+                                      "captured_nodes": {1: 0, 2: 2},
+                                      "replayed_nodes": {1: 5, 2: 0}}
+    assert bias_act.counts() == {"launches": 1, "captured_nodes": 2,
+                                 "replayed_nodes": 3, "unfused": 0}
+    tfused.reset_launches()
+    bias_act.reset_counts()
+    assert tfused.launch_counts() == {k: {1: 0, 2: 0} for k in (
+        "launches", "captured_nodes", "replayed_nodes")}
+    assert bias_act.counts() == dict.fromkeys(
+        ("launches", "captured_nodes", "replayed_nodes", "unfused"), 0)

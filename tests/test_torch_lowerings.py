@@ -53,6 +53,7 @@ from tfnas_tpu_torch.models.supernet import BlockSite, SuperNetwork as TNet
 from tfnas_tpu_torch.models.supernet_hybrid import HybridSuperNetwork
 from tfnas_tpu_torch.parallel.mesh import make_mesh
 from tfnas_tpu_torch.parallel.pareto import make_pareto_search_steps
+from tfnas_tpu_torch.search.compiled import GraphFamily
 from tfnas_tpu_torch.search.train_step import (adam_init, make_search_steps,
                                                tree_leaves, tree_map,
                                                tree_unflatten,
@@ -185,11 +186,11 @@ def test_cond_width_split_matches_jax_and_flag_off(op):
 def test_capture_refuses_cond_width_split():
     net = TNet(CLASSES, space=tss.tiny_space(RES), cond_width_split=True)
     with pytest.raises(ValueError, match="cond_width_split"):
-        make_search_steps(net, capture=True, **KW)
+        make_search_steps(net, family=GraphFamily(), **KW)
     with pytest.raises(ValueError, match="cond_width_split"):
         make_pareto_search_steps(net, make_mesh(1, 2, 0),
                                  num_classes=CLASSES, targets=(0.02, 0.03),
-                                 capture=True)
+                                 family=GraphFamily())
     make_search_steps(net, **KW)  # eager steps are fine
 
 

@@ -22,8 +22,10 @@ from tfnas_tpu_torch.convert import (arch_from_jax, params_from_jax,
                                      params_to_jax)
 from tfnas_tpu_torch.models import search_space as tss
 from tfnas_tpu_torch.models.supernet import SuperNetwork as TNet
+from tfnas_tpu_torch.search.compiled import (AutoGraphed, adopt, hold,
+                                             leaves_of)
 from tfnas_tpu_torch.search.train_step import (adam_init, make_search_steps,
-                                               zeros_like_tree)
+                                               tree_map, zeros_like_tree)
 from tfnas_tpu_torch.utils.checkpoint import to_numpy_tree
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -141,6 +143,37 @@ def test_arch_step_matches_jax(setup):
     assert topt.step == int(jopt.step) == 1
     for k in ("loss_a", "loss_l", "lat"):
         np.testing.assert_allclose(float(tmet[k]), float(jmet[k]), **TOL)
+
+
+def test_steps_without_a_family_run_eagerly(setup):
+    """With family=None, adopt keeps a tree as it is, and hold takes a
+    tree the first time and copies into it after that (a search loop's
+    buffers from epoch to epoch); every step is an AutoGraphed that calls
+    the step eagerly, with its result, and counts each call."""
+    s = setup
+    tp = params_from_jax(s["params"])
+    assert adopt(None, tp) is tp
+    masks = hold(None, None, tree_map(torch.clone, s["tmasks"]))
+    first = tree_map(lambda t: t, masks)
+    assert hold(None, masks, tree_map(torch.zeros_like, masks)) is masks
+    assert all(a is b and not a.any() for a, b in zip(
+        leaves_of(masks), leaves_of(first)))
+
+    ts = make_search_steps(s["tnet"], **KW)
+    step = ts.weight_step
+    assert isinstance(step, AutoGraphed) and step.family is None
+    args = (tp, arch_from_jax(s["arch"]), zeros_like_tree(tp), s["tmasks"],
+            s["tum"], torch.from_numpy(s["x"]),
+            torch.from_numpy(s["y"]).long(), 0.025,
+            torch.zeros(len(s["jnet"].sites), dtype=torch.long),
+            torch.ones(len(s["jnet"].sites), dtype=torch.long))
+    for _ in range(2):
+        got = step(*args)
+    want = step.fn(*args)
+    for g, w in zip(leaves_of(got), leaves_of(want)):
+        assert torch.equal(g, w)
+    assert (step.replays, step.eager_calls) == (0, 2)
+    assert step.graphed is None
 
 
 def test_val_step_matches_jax(setup):

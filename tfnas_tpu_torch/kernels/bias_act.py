@@ -20,19 +20,22 @@ activation (the BN-folded net, `use_bn=False`), when none of the layer's
 input and weights needs a gradient and, on the card, the input is f32 or
 bf16 (`fusable`). Other sites keep PyTorch's ops, unchanged.
 
-Counters since import (or `reset_counts`): `launches` counts eager kernel
-launches; a call on a stream that is being captured into a CUDA graph
-records a kernel node instead and counts in `captured`, and `replayed`
-counts the nodes that replays of captured graphs ran (search/compiled.py
-adds them per replay). `unfused` counts epilogue sites on a CUDA tensor
-that kept PyTorch's ops because a gradient was needed. Plain-version calls
-on CPU tensors count nowhere.
+Counters since import (or `reset_counts`), read by `counts()`: `launches`
+counts eager kernel launches; a call on a stream that is being captured
+into a CUDA graph records a kernel node instead and counts in
+`captured_nodes`, and `replayed_nodes` counts the nodes that replays of
+captured graphs ran (the counter
+`utils/trace.launch_counters["bias_act"]`, under the one key
+"epilogue"). `unfused` counts epilogue sites on a CUDA tensor that
+kept PyTorch's ops because a gradient was needed. Plain-version calls on
+CPU tensors count nowhere.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import sys
 from pathlib import Path
 
 import torch
@@ -48,49 +51,38 @@ DTYPES = (torch.float32, torch.bfloat16)  # of x, bias and gate
 MAX_NUMEL = 2 ** 31 - 1
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "bias_act.cu"
-BUILD_DIR = nvcc.BUILD_DIR
-NVCC_FLAGS = nvcc.SM90A_FLAGS
+# the C interface of csrc/bias_act.cu
+_p, _i, _q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+SIGNATURES = {"tfnas_bias_act_forward": (
+    [_p, _p, _i, _p, _i, _p, _p, _q, _q, _q, _i, _i, _i, _i, _p], _i)}
 
-launches = 0
-captured = 0
-replayed = 0
+_counter = nvcc.LaunchCounter("bias_act", ("epilogue",))
 unfused = 0
 # how the loaded library was obtained: {"path", "seconds", "log"}
 build_info = None
+# why the library could not be built or loaded, once that was tried
+build_error = None
 _lib = None
 
 
 def reset_counts():
-    global launches, captured, replayed, unfused
-    launches = captured = replayed = unfused = 0
+    global unfused
+    _counter.reset()
+    unfused = 0
 
 
 def counts():
     """The counts since the last reset: eager launches, nodes recorded at
     capture, nodes run by replays, and card sites left unfused."""
-    return {"launches": launches, "captured_nodes": captured,
-            "replayed_nodes": replayed, "unfused": unfused}
+    return {k: v["epilogue"] for k, v in _counter.counts().items()} | {
+        "unfused": unfused}
 
 
 def build_library():
     """Compile csrc/bias_act.cu into a C-ABI shared library under
-    BUILD_DIR, once per source content and flags, and return its path."""
-    global build_info
-    build_info = nvcc.build(_SOURCE, "libbias_act", NVCC_FLAGS,
-                            build_dir=BUILD_DIR)
-    return Path(build_info["path"])
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.tfnas_bias_act_forward.argtypes = [p, p, i, p, i, p, p, q, q, q,
-                                               i, i, i, i, p]
-        lib.tfnas_bias_act_forward.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    nvcc.BUILD_DIR, once per source content and flags, and return its
+    path."""
+    return nvcc.build_library(sys.modules[__name__], "libbias_act")
 
 
 def fusable(tensors, sites=1):
@@ -160,7 +152,7 @@ def bias_act_cuda(x, bias=None, act=None, gate=None, residual=None):
     ops = [t for t in (x, bias, gate, residual, out) if t is not None]
     vec = int(not nchw and c % VEC == 0
               and all(t.data_ptr() % 16 == 0 for t in ops))
-    lib = _library()
+    lib = nvcc.load(sys.modules[__name__], SIGNATURES)
     # the device guard only when x is not on the current device: entering
     # it costs host time on every call
     guard = (contextlib.nullcontext()
@@ -179,11 +171,7 @@ def bias_act_cuda(x, bias=None, act=None, gate=None, residual=None):
     if rc != 0:
         raise RuntimeError(f"bias_act kernel launch failed with CUDA error "
                            f"{rc}")
-    global launches, captured
-    if torch.cuda.is_current_stream_capturing():
-        captured += 1
-    else:
-        launches += 1
+    _counter.count("epilogue")
     return out
 
 

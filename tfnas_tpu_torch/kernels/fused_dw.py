@@ -9,16 +9,17 @@ It is differentiable through `FusedDwNormAct`.
 
 On a CUDA tensor the forward launches the hand-written kernel in
 `csrc/fused_dw.cu` (built with nvcc for sm_90a into `build/tfnas_tpu_torch/`
-at first use, loaded with ctypes); on a CPU tensor it runs `fused_dw_plain`,
-the same math in plain PyTorch. A CUDA tensor never falls back to the plain
-version: the kernel launches or the call raises. `launches[stride]` counts
-kernel launches at each stride (stride 1 replaces the TPU's `_kernel`,
-stride 2 its `_kernel_s2`); a call on a stream that is being captured into
-a CUDA graph records a kernel node instead and counts in
-`captured[stride]`, and `replayed[stride]` counts the nodes that replays of
-captured graphs ran (search/compiled.py adds them per replay). The
-kernel's static work decomposition is chosen here by `plan` and passed to
-it; `work_items` lists it in the kernel's order, for the CPU tests.
+at first use, loaded with ctypes by kernels/nvcc.py); on a CPU tensor it
+runs `fused_dw_plain`, the same math in plain PyTorch. A CUDA tensor never
+falls back to the plain version: the kernel launches or the call raises.
+`launches[stride]` counts kernel launches at each stride (stride 1
+replaces the TPU's `_kernel`, stride 2 its `_kernel_s2`); a call on a
+stream that is being captured into a CUDA graph records a kernel node
+instead and counts in `captured[stride]`, and `replayed[stride]` counts
+the nodes that replays of captured graphs ran (the dicts of the counter
+`utils/trace.launch_counters["fused_dw"]`). The kernel's static work
+decomposition is chosen here by `plan` and passed to it; `work_items`
+lists it in the kernel's order, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import collections
 import contextlib
 import ctypes
 import functools
+import sys
 from pathlib import Path
 
 import torch
@@ -51,51 +53,36 @@ SMEM_RESERVED = 1024       # the runtime's reserve per block
 _ACT_CODES = {None: 0, "relu": 1, "swish": 2, "h-swish": 3, "relu6": 4}
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_dw.cu"
-BUILD_DIR = nvcc.BUILD_DIR
-NVCC_FLAGS = nvcc.SM90A_FLAGS
+# the C interface of csrc/fused_dw.cu
+SIGNATURES = {"fused_dw_forward": (
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    ctypes.c_int)}
 
+_counter = nvcc.LaunchCounter("fused_dw", (1, 2))
 # kernel launches by stride since import (or the last reset); plain-version
 # calls on CPU tensors do not count
-launches = {1: 0, 2: 0}
+launches = _counter.launches
 # kernel nodes recorded into CUDA graphs under capture, and run by replays
-captured = {1: 0, 2: 0}
-replayed = {1: 0, 2: 0}
+captured, replayed = _counter.captured, _counter.replayed
+reset_launches = _counter.reset
 # how the loaded library was obtained: {"path", "seconds", "log"}
 build_info = None
+# why the library could not be built or loaded, once that was tried
+build_error = None
 _lib = None
-
-
-def reset_launches():
-    for counts in (launches, captured, replayed):
-        for stride in counts:
-            counts[stride] = 0
 
 
 def launch_counts():
     """The counts by stride since the last reset: eager launches, nodes
     recorded at capture and nodes run by replays."""
-    return {"launches": dict(launches), "captured_nodes": dict(captured),
-            "replayed_nodes": dict(replayed)}
+    return _counter.counts()
 
 
 def build_library():
     """Compile csrc/fused_dw.cu into a C-ABI shared library under
-    BUILD_DIR, once per source content and flags, and return its path."""
-    global build_info
-    build_info = nvcc.build(_SOURCE, "libfused_dw", NVCC_FLAGS,
-                            build_dir=BUILD_DIR)
-    return Path(build_info["path"])
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_dw_forward.argtypes = [p] * 6 + [i] * 11 + [p]
-        lib.fused_dw_forward.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    nvcc.BUILD_DIR, once per source content and flags, and return its
+    path."""
+    return nvcc.build_library(sys.modules[__name__], "libfused_dw")
 
 
 Plan = collections.namedtuple(
@@ -198,7 +185,7 @@ def fused_dw_cuda(x, w, scale, offset, stride, act):
     ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1
     y = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
     part = torch.empty((2, p.bpg, c), dtype=torch.float32, device=x.device)
-    lib = _library()
+    lib = nvcc.load(sys.modules[__name__], SIGNATURES)
     # the device guard only when x is not on the current device: entering
     # it costs host time on every call
     guard = (contextlib.nullcontext()
@@ -213,8 +200,7 @@ def fused_dw_cuda(x, w, scale, offset, stride, act):
     if rc != 0:
         raise RuntimeError(f"fused_dw kernel launch failed with CUDA error "
                            f"{rc}")
-    (captured if torch.cuda.is_current_stream_capturing()
-     else launches)[stride] += 1
+    _counter.count(stride)
     s, q = part.sum(dim=1).unbind(0)  # the bpg partial rows, in order
     return y, s, q
 

@@ -29,7 +29,7 @@ same function as the default path):
   and is recomputed in the backward;
 - cond_width_split: a sampled e3 candidate runs at its true width W / 2.
   The op index is read on the host per block, so such a net runs eagerly
-  only: make_search_steps(capture=True) refuses it;
+  only: make_search_steps(family=...) refuses it;
 - project_einsum=False: the soft path's per-candidate 1x1 project as
   grouped convolutions instead of one batched product;
 - dw_kernel_split: the soft path's depthwise as true 3x3 and 5x5

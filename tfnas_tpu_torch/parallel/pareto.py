@@ -18,8 +18,8 @@ group must make the same draws, from a generator seeded by the group
 (mesh.pair_seed), never by the rank: ranks that drew different ops would
 average the gradients of different subnetworks, and nothing would fail.
 
-With capture=True every group's steps replay from their own CUDA graphs,
-all in one GraphFamily: one memory pool for every group's intermediates.
+With a GraphFamily every group's steps replay from their own CUDA graphs,
+all in that family: one memory pool for every group's intermediates.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..convert import stack_group_trees
-from ..search.compiled import SharedFamily, leaves_of
+from ..search.compiled import leaves_of
 from ..search.train_step import adam_init, make_search_steps, zeros_like_tree
 
 __all__ = ["ParetoSearchState", "init_pareto_state", "stack_group_trees",
@@ -68,8 +68,7 @@ def _at(value, i):
 def make_pareto_search_steps(net, mesh, *, num_classes, targets, w_mom=0.9,
                              w_wd=1e-5, a_lr=0.01, a_beta1=0.5,
                              a_beta2=0.999, a_wd=5e-4, grad_clip=5.0,
-                             lambda_lat=0.1, valid_mask=None, capture=False,
-                             family=None):
+                             lambda_lat=0.1, valid_mask=None, family=None):
     """(weight_step, arch_step) over a ParetoSearchState of this rank's
     groups (`mesh`: parallel.mesh.ParetoMesh; `net` built with
     bn_group=mesh.data_group):
@@ -85,15 +84,13 @@ def make_pareto_search_steps(net, mesh, *, num_classes, targets, w_mom=0.9,
     uniform of its Gumbel noise. lr and T: one value for every group or a
     list with one per group. targets: the G target latencies (ms).
     valid_mask: the hybrid space's [18, 9] candidate mask, shared by the
-    groups. capture / family: as make_search_steps; every group's graphs
-    share one family."""
-    shared = family if isinstance(family, SharedFamily) else \
-        SharedFamily(family)
+    groups. family: as make_search_steps; every group's graphs share
+    it."""
     groups = [make_search_steps(
         net, num_classes=num_classes, w_mom=w_mom, w_wd=w_wd, a_lr=a_lr,
         a_beta1=a_beta1, a_beta2=a_beta2, a_wd=a_wd, grad_clip=grad_clip,
         lambda_lat=lambda_lat, target_lat=float(targets[g]),
-        capture=capture, family=shared, valid_mask=valid_mask,
+        family=family, valid_mask=valid_mask,
         group=mesh.data_group) for g in mesh.local_groups]
 
     def _stack(metrics):

@@ -17,10 +17,10 @@ updated), label smoothing 0.1, per-epoch cosine lr with a 5-epoch linear
 warmup when the batch exceeds 256.
 
 On the card and in one process, the train step is replayed from one CUDA
-graph (search/compiled.py, the port's `jax.jit`): the host enqueues a
-step in one launch instead of dispatching it op by op, so the card sets
-the pace. A data-parallel group, the CPU, `capture=False` or a batch of
-another shape than the first run the eager step.
+graph (search/compiled.AutoGraphed, the port's `jax.jit`): the host
+enqueues a step in one launch instead of dispatching it op by op, so the
+card sets the pace. A data-parallel group, the CPU, `capture=False` or a
+batch of another shape than the first run the eager step.
 
 The phase spans are those of the eager step (utils/trace.py; a replay
 records none): `tfnas.train.forward` (apply and loss),
@@ -31,13 +31,12 @@ records none): `tfnas.train.forward` (apply and loss),
 
 from __future__ import annotations
 
-import gc
 import math
 from typing import Any, NamedTuple
 
 import torch
 
-from ..search.compiled import GraphedFn, GraphFamily, leaves_of, on_card
+from ..search.compiled import AutoGraphed, GraphFamily
 from ..search.train_step import (grad_leaves, grad_tree, mean_over_group,
                                  sgd_momentum_update, tree_map,
                                  tree_unflatten, zeros_like_tree)
@@ -59,40 +58,6 @@ def init_eval_train_state(net, generator):
                           momentum=zeros_like_tree(params), epoch=0)
 
 
-class TrainStep:
-    """train_step(state, x, y, lr, keep=None) -> (state, metrics), replayed
-    from one CUDA graph when `capture` is set and x lies on the card, at
-    the shapes and dtypes of x, y and keep of its first such call (the
-    capture's); eager otherwise. The replayed step returns its static
-    buffers (search/compiled.py), which the next replay overwrites; an
-    eager step's result passed to a replay is copied into them. `replays`
-    and `eager_calls` count the calls of each kind."""
-
-    def __init__(self, fn, capture):
-        self.fn, self.capture = fn, capture
-        self.graphed = None   # the GraphedFn, made at the first card call
-        self.batch = None     # the captured (shape, dtype) of each input
-        self.replays = self.eager_calls = 0
-
-    def __call__(self, state, x, y, lr, keep=None):
-        if self.capture and on_card(x):
-            batch = [(tuple(t.shape), t.dtype)
-                     for t in leaves_of((x, y, keep))]
-            if self.graphed is None:
-                # a GraphFamily and its graphs form a reference cycle: a
-                # graph left for the collector and freed by a collection
-                # inside this capture would invalidate it
-                gc.collect()
-                self.graphed = GraphedFn(GraphFamily(x.device), self.fn,
-                                         {0: 0}, "train_step")
-                self.batch = batch
-            if batch == self.batch:
-                self.replays += 1
-                return self.graphed(state, x, y, lr, keep)
-        self.eager_calls += 1
-        return self.fn(state, x, y, lr, keep)
-
-
 def make_eval_steps(net, *, num_classes, label_smooth=0.1, momentum=0.9,
                     weight_decay=1e-5, grad_clip=5.0,
                     compute_dtype=torch.bfloat16, group=None, capture=True):
@@ -109,11 +74,13 @@ def make_eval_steps(net, *, num_classes, label_smooth=0.1, momentum=0.9,
     Metrics stay on the device; val_step's `count` is the number of valid
     samples it scored over all ranks.
 
-    train_step is a TrainStep: with capture (the default) and no group, its
-    calls on the card replay one CUDA graph of the eager step (the same
-    kernels in the same order, so bit for bit the eager step's result
-    under deterministic cuDNN), and their results are static buffers that
-    the next call overwrites. capture=False, a group or the CPU: eager."""
+    train_step is an AutoGraphed: with capture (the default) and no group,
+    its calls on the card replay one CUDA graph of the eager step (the
+    same kernels in the same order, so bit for bit the eager step's result
+    under deterministic cuDNN), at the shapes and dtypes of the first such
+    call, and their results are static buffers that the next call
+    overwrites. capture=False, a group, the CPU or a batch of another
+    shape: eager."""
 
     def train_step(state, x, y, lr, keep=None):
         def loss_fn(p):
@@ -164,7 +131,8 @@ def make_eval_steps(net, *, num_classes, label_smooth=0.1, momentum=0.9,
         return {"loss": sums[0] / wsum, "top1": sums[1] / wsum * 100.0,
                 "top5": sums[2] / wsum * 100.0, "count": sums[3]}
 
-    return TrainStep(train_step, capture and group is None), val_step
+    family = GraphFamily() if capture and group is None else None
+    return AutoGraphed(train_step, {0: 0}, "train_step", family), val_step
 
 
 def cosine_lr_with_warmup(base_lr, epochs, epoch, batch_size,

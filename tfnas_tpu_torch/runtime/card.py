@@ -36,7 +36,7 @@ import contextlib
 import ctypes
 import itertools
 import math
-import subprocess
+import sys
 import threading
 from collections import namedtuple
 from pathlib import Path
@@ -47,7 +47,6 @@ import torch
 from ..kernels import nvcc
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "image_decode.cu"
-NVCC_FLAGS = nvcc.SM90A_FLAGS
 LIBS = ("-ldl",)
 MODE_TRAIN, MODE_VAL = 0, 1
 VAL_RESIZE = 256          # the val transform's short side
@@ -109,40 +108,24 @@ def nvjpeg_path():
 
 
 def build_library():
-    """Compile csrc/image_decode.cu into BUILD_DIR (once per source content
-    and flags) and return its path; raises when nvcc fails."""
-    global build_info
-    build_info = nvcc.build(_SOURCE, "libtfnas_card", NVCC_FLAGS, LIBS)
-    return Path(build_info["path"])
+    """Compile csrc/image_decode.cu into nvcc.BUILD_DIR (once per source
+    content and flags) and return its path; raises when nvcc fails."""
+    return nvcc.build_library(sys.modules[__name__], "libtfnas_card", LIBS)
+
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# the C interface of csrc/image_decode.cu
+SIGNATURES = {
+    "tfnas_card_open": ([ctypes.c_char_p, _i, ctypes.POINTER(_i)], _i),
+    "tfnas_card_dlerror": ([], ctypes.c_char_p),
+    "tfnas_card_worker": ([ctypes.POINTER(_p)], _i),
+    "tfnas_card_probe": ([_p, _p, _p, _i, _p], _i),
+    "tfnas_card_decode": ([_p, _p, _p, _i, _p, _p, _p, _p], _i),
+    "tfnas_augment": ([_p, _i, _p, _p, _p], _i)}
 
 
 def _load():
-    global _lib, build_error
-    with _lock:
-        if _lib is not None:
-            return _lib
-        if build_error is not None:  # tried once: fail fast
-            raise RuntimeError(build_error)
-        try:
-            lib = ctypes.CDLL(str(build_library()))
-        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
-            build_error = f"{type(e).__name__}: {e}"
-            raise RuntimeError(build_error) from e
-        p, i = ctypes.c_void_p, ctypes.c_int
-        ip = ctypes.POINTER(ctypes.c_int)
-        lib.tfnas_card_open.argtypes = [ctypes.c_char_p, i, ip]
-        lib.tfnas_card_dlerror.argtypes = []
-        lib.tfnas_card_dlerror.restype = ctypes.c_char_p
-        lib.tfnas_card_worker.argtypes = [ctypes.POINTER(p)]
-        lib.tfnas_card_probe.argtypes = [p, p, p, i, p]
-        lib.tfnas_card_decode.argtypes = [p, p, p, i, p, p, p, p]
-        lib.tfnas_augment.argtypes = [p, i, p, p, p]
-        for fn in (lib.tfnas_card_open, lib.tfnas_card_worker,
-                   lib.tfnas_card_probe, lib.tfnas_card_decode,
-                   lib.tfnas_augment):
-            fn.restype = i
-        _lib = lib
-    return _lib
+    return nvcc.load(sys.modules[__name__], SIGNATURES)
 
 
 def open_pipeline(device):

@@ -19,17 +19,18 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import threading
+import sys
 from pathlib import Path
 
 import numpy as np
+
+from ..kernels import nvcc
 
 _SOURCE = Path(__file__).resolve().parent / "src" / "image_pipeline.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tfnas_tpu_torch"
 GXX = "g++"
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
-_lock = threading.Lock()
 _lib = None
 # why the library could not be built or loaded, once that was tried
 build_error = None
@@ -61,37 +62,23 @@ def build_library():
     return out
 
 
+_u8p, _f32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float)
+_i32p, _i = ctypes.POINTER(ctypes.c_int), ctypes.c_int
+# the C interface of src/image_pipeline.cpp
+SIGNATURES = {
+    "tfnas_augment_val": ([_u8p, _i, _i, _i, _i, _f32p, _f32p, _f32p], _i),
+    "tfnas_augment_train": ([_u8p, _i, _i, _i, _i, _i, _i, _i, _i, _i32p,
+                             _f32p, _f32p, _f32p, _f32p], _i),
+    "tfnas_decode_augment_train_batch_u8": (
+        [ctypes.POINTER(_u8p), ctypes.POINTER(ctypes.c_size_t), _i, _i32p,
+         _i, _i32p, _i32p, _f32p, _u8p, _i32p, _i], _i),
+    "tfnas_decode_augment_val_batch_u8": (
+        [ctypes.POINTER(_u8p), ctypes.POINTER(ctypes.c_size_t), _i, _i, _i,
+         _u8p, _i32p, _i], _i)}
+
+
 def _load():
-    global _lib, build_error
-    with _lock:
-        if _lib is not None:
-            return _lib
-        if build_error is not None:  # tried once: fail fast
-            raise RuntimeError(build_error)
-        try:
-            lib = ctypes.CDLL(str(build_library()))
-        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
-            build_error = f"{type(e).__name__}: {e}"
-            raise
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        f32p = ctypes.POINTER(ctypes.c_float)
-        i32p = ctypes.POINTER(ctypes.c_int)
-        u8pp = ctypes.POINTER(u8p)
-        szp = ctypes.POINTER(ctypes.c_size_t)
-        i = ctypes.c_int
-        lib.tfnas_augment_val.restype = i
-        lib.tfnas_augment_val.argtypes = [u8p, i, i, i, i, f32p, f32p, f32p]
-        lib.tfnas_augment_train.restype = i
-        lib.tfnas_augment_train.argtypes = [
-            u8p, i, i, i, i, i, i, i, i, i32p, f32p, f32p, f32p, f32p]
-        lib.tfnas_decode_augment_train_batch_u8.restype = i
-        lib.tfnas_decode_augment_train_batch_u8.argtypes = [
-            u8pp, szp, i, i32p, i, i32p, i32p, f32p, u8p, i32p, i]
-        lib.tfnas_decode_augment_val_batch_u8.restype = i
-        lib.tfnas_decode_augment_val_batch_u8.argtypes = [
-            u8pp, szp, i, i, i, u8p, i32p, i]
-        _lib = lib
-    return _lib
+    return nvcc.load(sys.modules[__name__], SIGNATURES)
 
 
 def available():

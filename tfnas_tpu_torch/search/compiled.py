@@ -1,38 +1,47 @@
-"""CUDA graphs of the search steps: the port's counterpart of `jax.jit` over
-the step functions (tfnas_tpu/search/train_step.py, make_search_steps).
+"""CUDA graphs of the port's steps: its counterpart of `jax.jit` over the
+step functions (tfnas_tpu/search/train_step.py, make_search_steps).
 
-A `GraphedFn` keeps the functional signature of the step it wraps. Its
-first call on CUDA tensors gives every tensor argument a static buffer (a
-copy, or the argument itself when it already is a static buffer of the same
-`GraphFamily`), runs the step eagerly on the family's side stream to warm it
-up (cuDNN and cuBLAS choices, the kernel build, first-use caches), and
-captures it into a `torch.cuda.CUDAGraph`. Every call copies its arguments
+`AutoGraphed(fn, writes, name, family)` keeps the functional signature of
+the step it wraps and decides at every call between its CUDA graph and
+the eager step. With a `GraphFamily`, its first call on CUDA tensors
+gives every tensor argument a static buffer (a copy, or the argument
+itself when it already is a static buffer of the same family), runs the
+step eagerly on the family's side stream to warm it up (cuDNN and cuBLAS
+choices, the kernel build, first-use caches), and captures it into a
+`torch.cuda.CUDAGraph`. A call whose arguments have the capture's
+structure and whose tensors its shapes, dtypes and device copies them
 into the static buffers, unless they are those buffers, and replays the
-graph. Outputs that are new values of arguments (params, momentum, arch
-params, Adam state) are copied back into those arguments' buffers inside the
-graph, so passing a step's result to the next step copies nothing. Other
-outputs (metrics) are copied into buffers allocated outside the graph's
-memory pool: the graphs of a family share one pool, and an output left in it
-could be overwritten by another graph's replay.
+graph; any other call, and every call without a family or off the card,
+runs `fn` eagerly. Outputs that are new values of arguments (params,
+momentum, arch params, Adam state) are copied back into those arguments'
+buffers inside the graph, so passing a step's result to the next step
+copies nothing. Other outputs (metrics) are copied into buffers allocated
+outside the graph's memory pool: the graphs of a family share one pool,
+and an output left in it could be overwritten by another graph's replay.
 
-The trees a captured step returns are its static buffers, which the next
-replay overwrites: read or clone them before. Random draws are arguments,
-made outside the graph. Nothing on the step path reads a device value on the
-host; a capture that fails raises.
+The trees a replay returns are its static buffers, which the next replay
+overwrites: read or clone them before. Random draws are arguments, made
+outside the graph. Nothing on the step path reads a device value on the
+host; a capture that fails raises. A graph records the kernel nodes of
+every launch counter (utils/trace.py `launch_counters`) at its capture,
+and each replay adds them to the counters' replayed counts.
+
+A family and its graphs hold no reference to the steps, so no reference
+cycle keeps a graph alive: a dropped graph is freed at once, never by a
+collection that could run inside a later capture and invalidate it.
 
 Spans (utils/trace.py, each with the graph's name as its id): each call
-is `tfnas.graph.call` around `tfnas.graph.args` (the arguments' flatten,
-checks and copies into the static buffers) and `tfnas.graph.replay`; the
-first call also holds `tfnas.graph.capture`, whose time is the graph's
-`build_s` and is added to `captures`, the process's total of every
-capture.
+from the capture on is `tfnas.graph.call` around `tfnas.graph.args` (the
+arguments' flatten, checks and copies into the static buffers) and, where
+they fit, `tfnas.graph.replay`; the first also holds
+`tfnas.graph.capture`, whose time is the graph's `build_s` and is added
+to `captures`, the process's total of every capture.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels import bias_act, fused_dw
 from ..utils import trace
 
 # every capture of the process: how many, and their seconds (warm-up,
@@ -104,23 +113,29 @@ def copy_tree_(dst, src):
 
 class GraphFamily:
     """Graphs on one device that share a memory pool, a side stream and
-    their static buffers."""
+    their static buffers. Without a device, it takes the device of the
+    first tree it adopts or the first arguments it captures.
+    `graphs` holds the captured graphs in their order of capture."""
 
-    def __init__(self, device):
-        self.device = torch.device(device)
-        if self.device.type != "cuda":
-            raise ValueError("CUDA graphs need a CUDA device")
-        self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(self.device)
+    def __init__(self, device=None):
+        self.device = None
         self._static = {}   # id -> the static tensor (kept alive here)
-        self.graphs = []    # GraphedFn objects in the order of capture
+        self.graphs = []
+        if device is not None:
+            self._bind(device)
 
-    def is_static(self, t):
-        return self._static.get(id(t)) is t
+    def _bind(self, device):
+        if self.device is None:
+            device = torch.device(device)
+            if device.type != "cuda":
+                raise ValueError("CUDA graphs need a CUDA device")
+            self.device = device
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(device)
 
     def _buffer(self, leaf):
         if isinstance(leaf, torch.Tensor):
-            if self.is_static(leaf):
+            if self._static.get(id(leaf)) is leaf:
                 return leaf
             t = leaf.detach().to(self.device, copy=True)
         elif isinstance(leaf, bool):
@@ -141,102 +156,33 @@ class GraphFamily:
         them with copy_tree_ between replays."""
         leaves = []
         spec = _flatten(tree, leaves)
+        if self.device is None:
+            self._bind(_first_tensor(leaves).device)
         return _unflatten(spec, iter([self._buffer(l) for l in leaves]))
 
 
-class GraphedFn:
-    """`fn(*args)` replayed from one CUDA graph over static buffers.
+# benchmark/drivers/serve.py imports this name
+SharedFamily = GraphFamily
 
-    writes: {output index: argument index} of outputs that are new values
-    of arguments, written back into those arguments' buffers."""
 
-    def __init__(self, family, fn, writes, name, warmup=1):
-        self.family, self.fn, self.writes = family, fn, dict(writes)
-        self.name, self.warmup = name, warmup
-        self.graph = None
-        self.nodes = {}        # fused kernel nodes by stride
-        self.epilogue_nodes = 0  # bias_act kernel nodes
-        self.build_s = None    # warm-up + capture + instantiation, seconds
-        self.replays = 0
+def adopt(family, tree):
+    """`tree` in static buffers of `family` (GraphFamily.adopt); `tree`
+    itself when `family` is None."""
+    return tree if family is None else family.adopt(tree)
 
-    def _capture(self, spec, leaves):
-        with trace.clock("tfnas.graph.capture", graph=self.name) as c:
-            self._build(spec, leaves)
-        self.build_s = c.ms / 1e3
-        captures["count"] += 1
-        captures["seconds"] += self.build_s
-        self.family.graphs.append(self)
 
-    def _build(self, spec, leaves):
-        fam = self.family
-        static = [fam._buffer(l) for l in leaves]
-        args = _unflatten(spec, iter(static))
-        # the warm-up runs the out-of-place step and drops its result, so
-        # the state is as it was
-        fam.stream.wait_stream(torch.cuda.current_stream(fam.device))
-        with torch.cuda.stream(fam.stream):
-            for _ in range(self.warmup):
-                out = self.fn(*args)
-        torch.cuda.current_stream(fam.device).wait_stream(fam.stream)
-        torch.cuda.synchronize(fam.device)
-        homes = {i: _unflatten(_flatten(o, []), iter(
-                     [torch.empty_like(t) for t in leaves_of(o)]))
-                 for i, o in enumerate(out) if i not in self.writes}
-        del out
+def hold(family, old, new):
+    """Where a tree that captured steps read lives from call to call: the
+    first time (`old` is None) `new` adopted, after that `new` copied into
+    `old`'s buffers, which are returned."""
+    if old is None:
+        return adopt(family, new)
+    copy_tree_(old, new)
+    return old
 
-        graph = torch.cuda.CUDAGraph()
-        before = dict(fused_dw.captured)
-        epilogues = bias_act.captured
-        with torch.cuda.graph(graph, pool=fam.pool, stream=fam.stream,
-                              capture_error_mode="thread_local"):
-            out = self.fn(*args)
-            dst, src = [], []
-            for i, o in enumerate(out):
-                target = args[self.writes[i]] if i in self.writes else homes[i]
-                dst += leaves_of(target)
-                src += leaves_like(target, o)
-            torch._foreach_copy_(dst, src)
-            del out, src
-        self.nodes = {s: fused_dw.captured[s] - before[s] for s in before}
-        self.epilogue_nodes = bias_act.captured - epilogues
-        self.graph, self.spec, self.static = graph, spec, static
-        n_out = len(self.writes) + len(homes)
-        self.outputs = tuple(args[self.writes[i]] if i in self.writes
-                             else homes[i] for i in range(n_out))
-        torch.cuda.synchronize(fam.device)
 
-    def __call__(self, *args):
-        with trace.span("tfnas.graph.call", graph=self.name):
-            if self.graph is None:
-                leaves = []
-                self._capture(_flatten(args, leaves), leaves)
-            with trace.span("tfnas.graph.args", graph=self.name):
-                leaves = []
-                if _flatten(args, leaves) != self.spec:
-                    raise ValueError(f"{self.name}: the arguments' "
-                                     f"structure changed since capture")
-                self._load(leaves)
-            with trace.span("tfnas.graph.replay", graph=self.name):
-                self.graph.replay()
-            self.replays += 1
-            for s, n in self.nodes.items():
-                fused_dw.replayed[s] += n
-            bias_act.replayed += self.epilogue_nodes
-            return self.outputs
-
-    def _load(self, leaves):
-        """Copy the arguments' leaves into the static buffers."""
-        for st, a in zip(self.static, leaves):
-            if st is a:
-                continue
-            if isinstance(a, torch.Tensor):
-                if a.shape != st.shape:
-                    raise ValueError(
-                        f"{self.name}: shape {tuple(a.shape)} does not fit "
-                        f"the static buffer's {tuple(st.shape)}")
-                st.copy_(a)
-            else:
-                st.fill_(a)
+def _first_tensor(leaves):
+    return next(l for l in leaves if isinstance(l, torch.Tensor))
 
 
 def on_card(tree):
@@ -247,34 +193,144 @@ def on_card(tree):
     return False
 
 
-class SharedFamily:
-    """The GraphFamily of a set of steps, made at the first capture unless
-    one is given."""
+class _Graph:
+    """One captured CUDA graph: its arguments' structure `spec` and static
+    buffers `static`, the buffers it writes its outputs to, and its kernel
+    nodes by launch counter, {kernel name: {key: nodes}}."""
 
-    def __init__(self, family=None):
-        self.family = family
+    def __init__(self, name):
+        self.name = name
+        self.nodes = {}
+        self.build_s = None    # warm-up + capture + instantiation, seconds
+        self.replays = 0
 
-    def get(self, args):
-        if self.family is None:
-            self.family = GraphFamily(next(
-                l.device for l in leaves_of(args)
-                if isinstance(l, torch.Tensor)))
-        return self.family
+
+def capture(fam, fn, writes, name, spec, leaves):
+    """The `_Graph` of `fn` over arguments of structure `spec` with leaves
+    `leaves`, captured in `fam` and added to its `graphs`."""
+    g = _Graph(name)
+    clock = trace.clock("tfnas.graph.capture", graph=name)
+    with clock:
+        fam._bind(_first_tensor(leaves).device)
+        g.spec, g.static = spec, [fam._buffer(l) for l in leaves]
+        args = _unflatten(spec, iter(g.static))
+        # the warm-up runs the out-of-place step and drops its result, so
+        # the state is as it was
+        fam.stream.wait_stream(torch.cuda.current_stream(fam.device))
+        with torch.cuda.stream(fam.stream):
+            out = fn(*args)
+        torch.cuda.current_stream(fam.device).wait_stream(fam.stream)
+        torch.cuda.synchronize(fam.device)
+        homes = {i: _unflatten(_flatten(o, []), iter(
+                     [torch.empty_like(t) for t in leaves_of(o)]))
+                 for i, o in enumerate(out) if i not in writes}
+        del out
+
+        g.graph = torch.cuda.CUDAGraph()
+        counters = trace.launch_counters
+        before = {k: dict(c.captured) for k, c in counters.items()}
+        with torch.cuda.graph(g.graph, pool=fam.pool, stream=fam.stream,
+                              capture_error_mode="thread_local"):
+            out = fn(*args)
+            dst, src = [], []
+            for i, o in enumerate(out):
+                target = args[writes[i]] if i in writes else homes[i]
+                dst += leaves_of(target)
+                src += leaves_like(target, o)
+            torch._foreach_copy_(dst, src)
+            del out, src
+        g.nodes = {k: {key: n - before[k][key]
+                       for key, n in c.captured.items()}
+                   for k, c in counters.items()}
+        g.outputs = tuple(args[writes[i]] if i in writes else homes[i]
+                          for i in range(len(writes) + len(homes)))
+        torch.cuda.synchronize(fam.device)
+    g.build_s = clock.ms / 1e3
+    captures["count"] += 1
+    captures["seconds"] += g.build_s
+    fam.graphs.append(g)
+    return g
 
 
 class AutoGraphed:
-    """`fn` replayed from a CUDA graph when its arguments lie on the card;
-    called eagerly otherwise (the CPU)."""
+    """`fn(*args)` replayed from one CUDA graph of `family` (a GraphFamily)
+    where its arguments fit the graph's capture, made at the first call on
+    the card; called eagerly otherwise, and always where `family` is None.
 
-    def __init__(self, fn, writes, name, shared):
-        self.fn, self.writes, self.name = fn, writes, name
-        self.shared = shared
+    writes: {output index: argument index} of outputs that are new values
+    of arguments, written back into those arguments' buffers. `graphed`
+    is the captured graph (None before); `replays` and `eager_calls` count
+    the calls of each kind."""
+
+    def __init__(self, fn, writes, name, family):
+        self.fn, self.writes, self.name = fn, dict(writes), name
+        self.family = family
         self.graphed = None
+        self.eager_calls = 0
+
+    @property
+    def replays(self):
+        return 0 if self.graphed is None else self.graphed.replays
 
     def __call__(self, *args):
-        if self.graphed is None:
-            if not on_card(args):
-                return self.fn(*args)
-            self.graphed = GraphedFn(self.shared.get(args), self.fn,
-                                     self.writes, self.name)
-        return self.graphed(*args)
+        g = self.graphed
+        if g is not None or (self.family is not None and on_card(args)):
+            with trace.span("tfnas.graph.call", graph=self.name):
+                if g is None:
+                    leaves = []
+                    spec = _flatten(args, leaves)
+                    g = self.graphed = capture(self.family, self.fn,
+                                               self.writes, self.name, spec,
+                                               leaves)
+                with trace.span("tfnas.graph.args", graph=self.name):
+                    fits = _load(g, args)
+                if fits:
+                    with trace.span("tfnas.graph.replay", graph=self.name):
+                        g.graph.replay()
+                    g.replays += 1
+                    for k, nodes in g.nodes.items():
+                        replayed = trace.launch_counters[k].replayed
+                        for key, n in nodes.items():
+                            replayed[key] += n
+                    return g.outputs
+        self.eager_calls += 1
+        return self.fn(*args)
+
+
+def _keyed(spec):
+    """`spec` with each dict's entries in the order of their keys."""
+    kind = spec[0]
+    if kind == "dict":
+        order = sorted(range(len(spec[1])), key=lambda i: repr(spec[1][i]))
+        return (kind, tuple(spec[1][i] for i in order),
+                tuple(_keyed(spec[2][i]) for i in order))
+    if kind in ("named", tuple, list):
+        return (kind, spec[1], tuple(_keyed(s) for s in spec[2]))
+    return spec
+
+
+def _load(g, args):
+    """Copy the leaves of `args` into the static buffers of graph `g` and
+    return True; copy nothing and return False where they do not fit: a
+    structure other than the capture's, or a tensor of another shape,
+    dtype or device than its buffer. Dicts may hold their keys in another
+    order than at the capture (an eager step's result may): their leaves
+    are then matched by key."""
+    leaves = []
+    spec = _flatten(args, leaves)
+    if spec != g.spec:
+        if _keyed(spec) != _keyed(g.spec):
+            return False
+        leaves = leaves_like(_unflatten(g.spec, iter(g.static)), args)
+    pairs = [(st, a) for st, a in zip(g.static, leaves) if st is not a]
+    for st, a in pairs:
+        if isinstance(a, torch.Tensor) and (
+                a.shape != st.shape or a.dtype != st.dtype
+                or a.device != st.device):
+            return False
+    for st, a in pairs:
+        if isinstance(a, torch.Tensor):
+            st.copy_(a)
+        else:
+            st.fill_(a)
+    return True

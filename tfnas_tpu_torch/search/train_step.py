@@ -8,7 +8,7 @@ Optimisers follow PyTorch's semantics as the JAX package writes them out:
 
 Parameter trees are nested dicts of tensors. The step functions are
 functional: they return new trees and leave their arguments unchanged.
-Steps made with capture=True are not: on the card they return static
+Steps made with a GraphFamily are not: on the card they return static
 buffers that the next replay overwrites (search/compiled.py).
 Random draws enter as arguments (search/bisample.py makes them), so a step
 is a deterministic function of its inputs. Metrics stay on the device.
@@ -26,7 +26,7 @@ from ..utils.metrics import accuracy, cross_entropy, masked_mean, nll
 from .bisample import (gumbel_softmax_weights, gumbel_uniform,
                        project_log_softmax, sample_gumbel_indices,
                        sample_random_excluding)
-from .compiled import AutoGraphed, SharedFamily
+from .compiled import AutoGraphed
 
 
 # -- trees -------------------------------------------------------------------
@@ -210,8 +210,7 @@ class SearchStepFns(NamedTuple):
 def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
                       a_beta1=0.5, a_beta2=0.999, a_wd=5e-4, grad_clip=5.0,
                       lambda_lat=0.1, target_lat=15.0, lat_under_boost=1.0,
-                      capture=False, family=None, valid_mask=None,
-                      group=None):
+                      family=None, valid_mask=None, group=None):
     """The step functions for SuperNetwork `net`:
 
     warmup_step(params, arch_params, mom, masks, update_masks, x, y, lr,
@@ -225,14 +224,12 @@ def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
     indices; gumbel_u: the [18, 8] uniform draw of the Gumbel noise; lr,
     base_lat, temperature: floats or 0-dim tensors.
 
-    capture mirrors the JAX package's jit=: with capture=True, the warmup,
-    weight and arch steps called with tensors on the card are each replayed
-    from a CUDA graph (search/compiled.py; their outputs are then static
-    buffers that the next replay overwrites, so a caller that keeps a
-    step's result clones it first). On the CPU they run eagerly.
-    family: the GraphFamily whose pool and buffers the graphs share (or a
-    SharedFamily, to share one made at the first capture with other
-    steps).
+    family mirrors the JAX package's jit=: with a GraphFamily (whose pool
+    and buffers the graphs share), the warmup, weight and arch steps called
+    with tensors on the card are each replayed from a CUDA graph
+    (search/compiled.AutoGraphed; their outputs are then static buffers
+    that the next replay overwrites, so a caller that keeps a step's
+    result clones it first). With None, and on the CPU, they run eagerly.
     valid_mask: optional 0/1 [18, NUM_OPS] tensor of the candidate slots
     each block offers (the hybrid conv/ViT space): invalid slots get zero
     soft weight and the projection pins them to a sentinel. The hard draws
@@ -243,14 +240,14 @@ def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
     ranks and the arch step its gradients and loss_a, by one collective
     each. Every rank must then make the same draws.
 
-    Raises ValueError for capture=True with a net built with
+    Raises ValueError for a family with a net built with
     cond_width_split: it reads each sampled op index on the host, which a
     graph cannot (the JAX package forbids it under vmap)."""
     del num_classes  # the logits carry it
-    if capture and net.cond_width_split:
+    if family is not None and net.cond_width_split:
         raise ValueError("cond_width_split reads every sampled op index on "
                          "the host, so its steps cannot be captured: make "
-                         "them with capture=False")
+                         "them without a family")
 
     def _weight_update(params, mom, update_masks, grads, lr):
         return sgd_momentum_update(params, grads, mom, update_masks, lr=lr,
@@ -330,14 +327,10 @@ def make_search_steps(net, *, num_classes, w_mom=0.9, w_wd=1e-5, a_lr=0.01,
         top1, top5 = accuracy(logits, y, topk=(1, 5), weights=wmask)
         return {"loss": loss, "top1": top1, "top5": top5}
 
-    if not capture:
-        return SearchStepFns(warmup_step, weight_step, arch_step, val_step)
-    shared = family if isinstance(family, SharedFamily) else \
-        SharedFamily(family)
     return SearchStepFns(
-        AutoGraphed(warmup_step, {0: 0, 1: 2}, "warmup_step", shared),
-        AutoGraphed(weight_step, {0: 0, 1: 2}, "weight_step", shared),
-        AutoGraphed(arch_step, {0: 1, 1: 2}, "arch_step", shared),
+        AutoGraphed(warmup_step, {0: 0, 1: 2}, "warmup_step", family),
+        AutoGraphed(weight_step, {0: 0, 1: 2}, "weight_step", family),
+        AutoGraphed(arch_step, {0: 1, 1: 2}, "arch_step", family),
         val_step)
 
 
@@ -364,7 +357,7 @@ def make_scanned_search_iter(net, *, num_classes, arch_every=2, steps=None,
     The generator's draws respect kw's valid_mask, as the steps do.
 
     steps: the SearchStepFns to run (default: make_search_steps(net, **kw);
-    capture=True there replays each step from its graph on the card). The
+    a family there replays each step from its graph on the card). The
     units are a host loop over those steps: on the card it enqueues
     replays and draws without waiting for the card, so K > 1 saves no
     dispatch, unlike the JAX package's scan over a remote device."""

@@ -26,14 +26,14 @@ from __future__ import annotations
 import argparse
 import json
 
-from .bench import search_setup
 from .device import describe, resolve_device
 from .models import search_space as ss
 from .models.supernet import SuperNetwork
 from .search.bisample import gumbel_uniform
-from .search.compiled import GraphFamily
+from .search.compiled import GraphFamily, adopt
 from .search.train_step import adam_init, make_search_steps, tree_map
 from .tools_profile import elapsed_ms
+from .tools_setup import search_setup
 
 VARIANTS = {
     "einsum": {},
@@ -60,15 +60,14 @@ def main(argv=None):
              else None)
     _, st, target, gen = search_setup(device, space, args.batch_size,
                                       args.image_size, args.num_classes)
-    captured = device.type == "cuda" and not args.eager
-    fam = GraphFamily(device) if captured else None
+    fam = (GraphFamily(device)
+           if device.type == "cuda" and not args.eager else None)
     st["u"] = gumbel_uniform(st["arch"]["log_alphas"].shape, gen)
-    if fam is not None:
-        st = fam.adopt(st)  # the graphs read the shared state in place
+    st = adopt(fam, st)  # the graphs read the shared state in place
     steps = {name: make_search_steps(
         SuperNetwork(args.num_classes, space=space, **kw),
-        num_classes=args.num_classes, target_lat=target, capture=captured,
-        family=fam) for name, kw in VARIANTS.items()}
+        num_classes=args.num_classes, target_lat=target, family=fam)
+        for name, kw in VARIANTS.items()}
 
     res = {name: {"ms": []} for name in VARIANTS}
     for pass_idx in range(2):
@@ -97,7 +96,7 @@ def main(argv=None):
         print(f"{name:16s} max |log_alphas - einsum| = "
               f"{r['max_abs_log_alphas_vs_einsum']:.2e}", flush=True)
     out = {"tool": "tools_ab_ksplit", **describe(device),
-           "mode": "captured" if captured else "eager",
+           "mode": "captured" if fam else "eager",
            "space": args.space, "batch": args.batch_size,
            "image_size": args.image_size, "arch_steps": 1 + args.n,
            "reported_pass": 2,

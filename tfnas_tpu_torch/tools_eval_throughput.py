@@ -25,12 +25,12 @@ import os
 import numpy as np
 import torch
 
-from .bench import ROOT
 from .cost.measure import measure_latency_in_ms
 from .device import describe, resolve_device
 from .models.eval_net import EvalNetwork
 from .models.folding import fold_batchnorm
 from .search.train_step import tree_map
+from .tools_setup import ROOT
 
 CONFIG = os.path.join(ROOT, "configs", "tfnas_a_tpu.config")
 REFERENCE_IMS = 32 / 0.01803  # TF-NAS-A on a Titan RTX at batch 32

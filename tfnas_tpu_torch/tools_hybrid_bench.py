@@ -33,12 +33,12 @@ import sys
 import numpy as np
 import torch
 
-from .bench import arch_iter, search_setup, weight_iter
 from .device import describe, resolve_device
 from .kernels import fused_dw
-from .search.compiled import GraphFamily
+from .search.compiled import GraphFamily, adopt
 from .search.train_step import make_search_steps
 from .tools_profile import elapsed_ms
+from .tools_setup import arch_iter, search_setup, weight_iter
 
 
 def build(space, batch, size, ncls, device, family):
@@ -51,11 +51,9 @@ def build(space, batch, size, ncls, device, family):
     st["lat"] = torch.ones_like(st["lat"])
     st["base"] = torch.tensor(0.02, device=device)
     valid = net.valid_mask(device) if hybrid else None
-    if family is not None:
-        st = family.adopt(st)
+    st = adopt(family, st)
     steps = make_search_steps(net, num_classes=ncls, target_lat=1.0,
-                              valid_mask=valid, capture=family is not None,
-                              family=family)
+                              valid_mask=valid, family=family)
     return (lambda: weight_iter(steps, st, gen, valid)["loss"],
             lambda: arch_iter(steps, st, gen)["loss_a"])
 
@@ -74,8 +72,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     fused_dw.reset_launches()
-    captured = device.type == "cuda"
-    family = GraphFamily(device) if captured else None
+    family = GraphFamily(device) if device.type == "cuda" else None
     states = {sp: build(sp, args.batch, args.size, args.num_classes, device,
                         family) for sp in ("mbconv", "hybrid")}
 
@@ -96,7 +93,7 @@ def main(argv=None):
     out["hybrid_overhead"] = {k: out["hybrid"][k] / out["mbconv"][k]
                               for k in ("w_ms", "a_ms")}
     out.update(tool="tools_hybrid_bench",
-               mode="captured" if captured else "eager", batch=args.batch,
+               mode="captured" if family else "eager", batch=args.batch,
                size=args.size, iters=args.iters,
                fused_dw=fused_dw.launch_counts(), **describe(device))
     print(json.dumps(out), flush=True)

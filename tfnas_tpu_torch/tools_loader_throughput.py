@@ -97,15 +97,15 @@ def search_feed(ds, args, device):
     the module's docstring)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from .bench import search_iter, search_setup
     from .search.compiled import GraphFamily
     from .search.train_step import make_search_steps
+    from .tools_setup import search_iter, search_setup
 
     bs, size = args.batch_size, args.image_size
     net, state, target, gen = search_setup(device, batch=bs, size=size)
     family = GraphFamily(device)
     steps = make_search_steps(net, num_classes=net.num_classes,
-                              target_lat=target, capture=True, family=family)
+                              target_lat=target, family=family)
     st = family.adopt(dict(state))
     prep = device_normalizer(torch.bfloat16)
     dl = DataLoader(ds, bs, shuffle=True, num_workers=args.workers, seed=1)

@@ -33,17 +33,15 @@ import sys
 
 import torch
 
-from .bench import ROOT, Deadline, search_rate, search_setup
 from .device import describe, resolve_device
 from .kernels import fused_dw
 from .models import search_space as ss
 from .search.compiled import GraphFamily
+from .tools_setup import ROOT, search_rate, search_setup
 
 
 def release(device):
-    """Free the card memory of graphs no longer referenced (a GraphFamily
-    and its graphs refer to each other, so only the cycle collector frees
-    them)."""
+    """Free the card memory of graphs and buffers no longer referenced."""
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -57,10 +55,10 @@ def one_pass(device, space, batch, args, lut_path):
     net, state, target, gen = search_setup(
         device, space, batch, args.image_size, args.num_classes, lut_path,
         remat_blocks=args.remat_blocks)
-    captured = device.type == "cuda" and not args.eager
-    family = GraphFamily(device) if captured else None
-    rate, _, _ = search_rate(net, state, target, gen, captured, args.n_timed,
-                             args.warm, Deadline(float("inf")), family)
+    family = (GraphFamily(device)
+              if device.type == "cuda" and not args.eager else None)
+    rate = search_rate(net, state, target, gen, family, args.n_timed,
+                       args.warm)
     peak = reserved = None
     if device.type == "cuda":
         peak = torch.cuda.max_memory_allocated(device) / 1e9

@@ -37,13 +37,13 @@ import time
 
 import torch
 
-from .bench import search_setup
 from .device import describe, resolve_device
 from .models import search_space as ss
 from .search.bisample import (gumbel_uniform, sample_gumbel_indices,
                               sample_random_excluding)
-from .search.compiled import GraphedFn, GraphFamily
+from .search.compiled import AutoGraphed, GraphFamily, adopt
 from .search.train_step import make_search_steps, value_and_grad
+from .tools_setup import search_setup
 from .utils.metrics import cross_entropy
 
 STEP_ROWS = ("weight_step (bi-sample)", "arch_step (soft)",
@@ -146,10 +146,9 @@ def main(argv=None):
         device, space, args.batch_size, args.image_size, args.num_classes,
         project_einsum=not args.grouped_project,
         dw_kernel_split=args.dw_kernel_split)
-    captured = device.type == "cuda" and not args.eager
-    fam = GraphFamily(device) if captured else None
-    if fam is not None:
-        st = fam.adopt(st)  # graphs read the state in place
+    fam = (GraphFamily(device)
+           if device.type == "cuda" and not args.eager else None)
+    st = adopt(fam, st)  # graphs read the state in place
 
     def want(name):
         return args.only in name
@@ -158,14 +157,13 @@ def main(argv=None):
     for name, fn, fargs in piece_rows(net, st):
         if not want(name):
             continue
-        call = GraphedFn(fam, fn, {}, name) if captured else fn
+        call = AutoGraphed(fn, {}, name, fam)
         rows[name] = time_ms(lambda: call(*fargs), device, args.iters)
         print(f"{name:40s} {rows[name]:9.2f} ms", flush=True)
 
     if any(want(n) for n in STEP_ROWS):
         steps = make_search_steps(net, num_classes=args.num_classes,
-                                  target_lat=target, capture=captured,
-                                  family=fam)
+                                  target_lat=target, family=fam)
         la = st["arch"]["log_alphas"]
         ig = sample_gumbel_indices(la, gen)
         ir = sample_random_excluding(ig, ss.NUM_OPS, gen)
@@ -190,7 +188,7 @@ def main(argv=None):
         print(f"-> {1e3 / rows[STEP_ROWS[2]]:.2f} steps/s", flush=True)
 
     out = {"tool": "tools_profile", **describe(device),
-           "mode": "captured" if captured else "eager",
+           "mode": "captured" if fam else "eager",
            "space": args.space, "batch": args.batch_size,
            "image_size": args.image_size,
            "grouped_project": args.grouped_project,

@@ -38,9 +38,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .bench import ROOT
 from .data import DataLoader, DevicePrefetcher, ImageList
 from .device import resolve_device
+from .tools_setup import ROOT
 
 
 def _render_fns():

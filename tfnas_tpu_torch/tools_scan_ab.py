@@ -30,12 +30,12 @@ import time
 
 import torch
 
-from .bench import search_iter, search_setup
 from .device import describe, resolve_device
 from .kernels import fused_dw
 from .models import search_space as ss
-from .search.compiled import GraphFamily
+from .search.compiled import GraphFamily, adopt
 from .search.train_step import make_scanned_search_iter, make_search_steps
+from .tools_setup import search_iter, search_setup
 
 parser = argparse.ArgumentParser("scan A/B")
 parser.add_argument("--batch", type=int, default=32)
@@ -60,12 +60,10 @@ def main(argv=None):
                                    ncls)
     st["lat"] = torch.ones_like(st["lat"])
     st["base"] = torch.tensor(1.0, device=device)
-    captured = device.type == "cuda"
-    fam = GraphFamily(device) if captured else None
-    if fam is not None:
-        st = fam.adopt(st)
+    fam = GraphFamily(device) if device.type == "cuda" else None
+    st = adopt(fam, st)
     steps = make_search_steps(net, num_classes=ncls, target_lat=15.0,
-                              capture=captured, family=fam)
+                              family=fam)
     scan = make_scanned_search_iter(net, num_classes=ncls, arch_every=2,
                                     steps=steps)
 
@@ -123,7 +121,7 @@ def main(argv=None):
     for name, best in summary.items():
         print(f"{name}: best {best:.2f} weight-steps/s")
     out = {**summary, "tool": "tools_scan_ab",
-           "mode": "captured" if captured else "eager",
+           "mode": "captured" if fam else "eager",
            "space": args.space, "batch": args.batch, "size": args.size,
            "timed_units": args.timed_units, "rounds": results,
            "fused_dw": fused_dw.launch_counts(), **describe(device)}

@@ -209,7 +209,7 @@ def main(argv=None):
         momentum=args.momentum, weight_decay=args.weight_decay,
         grad_clip=args.grad_clip, compute_dtype=dtype,
         group=make_mesh(world).data_group, capture=not args.eager)
-    logging.info("steps: %s", "CUDA graph" if train_step.capture
+    logging.info("steps: %s", "CUDA graph" if train_step.family
                  and device.type == "cuda" else "eager")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = init_eval_train_state(net, gen)  # the same on every rank

@@ -58,7 +58,7 @@ from .search.bisample import (gumbel_uniform, sample_gumbel_indices,
 from .search.elasticity import rewrite_masks_by_l1, shrink_or_expand
 from .search.parser import (get_mc_num_dddict, get_op_and_depth_weights,
                             parse_architecture)
-from .search.compiled import GraphFamily, copy_tree_, leaves_of
+from .search.compiled import GraphFamily, adopt, hold, leaves_of
 from .search.train_step import (adam_init, cosine_lr_list, make_search_steps,
                                 make_scanned_search_iter, tree_leaves,
                                 zeros_like_tree)
@@ -210,32 +210,26 @@ class Search:
                  mc_mask_dddict, device, *, step_kwargs, family=None,
                  scan_units=None):
         self.net, self.space, self.lut = net, space, lat_lookup
-        self.device = device
-        self.adopt = family.adopt if family is not None else (lambda t: t)
-        self.steps = make_search_steps(net, capture=family is not None,
-                                       family=family, **step_kwargs)
+        self.device, self.family = device, family
+        self.steps = make_search_steps(net, family=family, **step_kwargs)
         self.scan = make_scanned_search_iter(net, arch_every=2,
                                              steps=self.steps,
                                              **step_kwargs)
         self.scan_units = scan_units
-        self.params = self.adopt(params)
-        self.arch_params = self.adopt(arch_params)
+        self.params = adopt(family, params)
+        self.arch_params = adopt(family, arch_params)
         self.mc_mask_dddict = mc_mask_dddict
         self.key_dddict = space.build_lat_lookup_key_dddict()
         self.masks = self.update_masks = self.lat_vec = None
         self.mom = self.opt_a = None
-        self.lr = self.adopt(torch.zeros((), device=device))
-        self.T = self.adopt(torch.zeros((), device=device))
-        self.base_lat = self.adopt(torch.tensor(float(lat_lookup["base"]),
-                                                device=device))
+        self.lr = adopt(family, torch.zeros((), device=device))
+        self.T = adopt(family, torch.zeros((), device=device))
+        self.base_lat = adopt(family, torch.tensor(float(lat_lookup["base"]),
+                                                   device=device))
         self.num_ops = space.NUM_OPS
 
     def _set(self, name, value):
-        """Rebind on the first epoch; later, write into the same buffers."""
-        if getattr(self, name) is None:
-            setattr(self, name, self.adopt(value))
-        else:
-            copy_tree_(getattr(self, name), value)
+        setattr(self, name, hold(self.family, getattr(self, name), value))
 
     def begin_epoch(self, lr, T):
         """Masks, update masks and latency vector of the current widths;
@@ -250,8 +244,8 @@ class Search:
             self.lut, mc_num_dddict, self.key_dddict,
             self.num_ops)).to(self.device))
         if self.mom is None:
-            self.mom = self.adopt(zeros_like_tree(self.params))
-            self.opt_a = self.adopt(adam_init(self.arch_params))
+            self.mom = adopt(self.family, zeros_like_tree(self.params))
+            self.opt_a = adopt(self.family, adam_init(self.arch_params))
         else:
             torch._foreach_zero_(leaves_of(self.mom) + leaves_of(self.opt_a))
         self.lr.fill_(lr)
@@ -626,9 +620,8 @@ def main(argv=None):
 
     if family is not None:
         for g in family.graphs:
-            logging.info("graph %s: built in %.1fs, %d replays, fused "
-                         "kernel nodes %s", g.name, g.build_s, g.replays,
-                         g.nodes)
+            logging.info("graph %s: built in %.1fs, %d replays, kernel "
+                         "nodes %s", g.name, g.build_s, g.replays, g.nodes)
     logging.info('Total searching time: %ds', time.time() - total_start)
     return run_dir
 

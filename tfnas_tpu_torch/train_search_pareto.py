@@ -54,7 +54,7 @@ from .parallel.mesh import (local_device, make_mesh, maybe_distributed_init,
 from .parallel.pareto import (ParetoSearchState, init_pareto_state,
                               make_pareto_search_steps,
                               reset_group_optimizers)
-from .search.compiled import GraphFamily, copy_tree_
+from .search.compiled import GraphFamily, adopt, hold
 from .search.parser import get_mc_num_dddict
 from .search.train_step import cosine_lr_list
 from .train_search import (GeneratorDraws, load_resume, masks_to_numpy,
@@ -198,42 +198,36 @@ def main(argv=None):
     family = (GraphFamily(device)
               if device.type == "cuda" and not args.eager else None)
     logging.info("steps: %s", "CUDA graphs" if family else "eager")
-    adopt = family.adopt if family is not None else (lambda t: t)
     weight_step, arch_step = make_pareto_search_steps(
         net, mesh, num_classes=args.num_classes, targets=targets,
         w_mom=args.w_mom, w_wd=args.w_wd, a_lr=args.a_lr, a_wd=args.a_wd,
         grad_clip=args.grad_clip, lambda_lat=args.lambda_lat,
-        valid_mask=valid_mask, capture=family is not None, family=family)
-    state = ParetoSearchState(*(adopt(list(f)) for f in state))
+        valid_mask=valid_mask, family=family)
+    state = ParetoSearchState(*(adopt(family, list(f)) for f in state))
     draws = [GeneratorDraws(torch.Generator(device=device).manual_seed(
         pair_seed(args.seed + 1, g)), valid_mask) for g in local]
-    lr = adopt([torch.zeros((), device=device) for _ in local])
-    T_dev = adopt([torch.zeros((), device=device) for _ in local])
-    base_lat = adopt(torch.tensor(float(lat_lookup["base"]), device=device))
+    lr = adopt(family, [torch.zeros((), device=device) for _ in local])
+    T_dev = adopt(family, [torch.zeros((), device=device) for _ in local])
+    base_lat = adopt(family, torch.tensor(float(lat_lookup["base"]),
+                                          device=device))
     key_dddict = space.build_lat_lookup_key_dddict()
     lr_list = cosine_lr_list(args.w_lr, args.epochs)
     prep = device_normalizer(torch.bfloat16 if args.bf16 else torch.float32)
     masks = update_masks = lat_vecs = None
 
-    def in_buffers(old, new):
-        """Rebind on the first epoch; later, write into the same buffers
-        (the captured steps read them in place)."""
-        if old is None:
-            return adopt(new)
-        copy_tree_(old, new)
-        return old
-
     total_start = time.time()
     for epoch in range(start_epoch, args.epochs):
         trace.reset()  # traced runs keep one epoch of spans in memory
-        masks = in_buffers(masks, [net.device_masks(m, device)
-                                   for m in group_masks])
-        update_masks = in_buffers(update_masks, [
+        # the captured steps read these buffers in place
+        masks = hold(family, masks, [net.device_masks(m, device)
+                                     for m in group_masks])
+        update_masks = hold(family, update_masks, [
             net.update_masks(p, m)
             for p, m in zip(state.params, group_masks)])
-        lat_vecs = in_buffers(lat_vecs, [torch.from_numpy(lat_vectors_for_mc(
-            lat_lookup, get_mc_num_dddict(m), key_dddict,
-            space.NUM_OPS)).to(device) for m in group_masks])
+        lat_vecs = hold(family, lat_vecs, [
+            torch.from_numpy(lat_vectors_for_mc(
+                lat_lookup, get_mc_num_dddict(m), key_dddict,
+                space.NUM_OPS)).to(device) for m in group_masks])
         reset_group_optimizers(state)
         for i in range(len(local)):
             lr[i].fill_(lr_list[epoch])
@@ -286,9 +280,8 @@ def main(argv=None):
 
     if family is not None:
         for gr in family.graphs:
-            logging.info("graph %s: built in %.1fs, %d replays, fused "
-                         "kernel nodes %s", gr.name, gr.build_s, gr.replays,
-                         gr.nodes)
+            logging.info("graph %s: built in %.1fs, %d replays, kernel "
+                         "nodes %s", gr.name, gr.build_s, gr.replays, gr.nodes)
     logging.info('Total pareto searching time: %ds',
                  time.time() - total_start)
     return run_dir

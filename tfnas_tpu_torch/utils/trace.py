@@ -32,8 +32,13 @@ closed spans as plain data, `reset()` forgets them. Nothing writes files.
 The drivers (train_search, train_search_pareto, train_eval) reset at each
 epoch, so that a traced run keeps one epoch of spans in memory.
 
+`launch_counters` holds every hand-written kernel's launch counter
+(kernels/nvcc.LaunchCounter) by kernel name: the graph module
+(search/compiled.py) reads them at each capture and adds to them at each
+replay without knowing the kernels.
+
 Span names:
-  tfnas.graph.call, .args, .replay, .capture   search/compiled.GraphedFn
+  tfnas.graph.call, .args, .replay, .capture   search/compiled.AutoGraphed
   tfnas.train.forward, .backward, .update       parallel/train_dp train_step
   tfnas.search.fetch, .step                     train_search's per-step log
   tfnas.block.mbconv, .attn (device, blocks)    models/eval_net apply, each
@@ -58,6 +63,8 @@ _on = os.environ.get("TFNAS_TRACE", "") == "1"
 _blocks = False
 _local = threading.local()
 _closed = []   # spans closed since the last reset, from every thread
+# kernel name -> kernels/nvcc.LaunchCounter, in the order they were made
+launch_counters = {}
 
 
 def enable(blocks=False):

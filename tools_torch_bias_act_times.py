@@ -18,8 +18,8 @@ bound from HBM bytes and its largest error against the plain version in
 bf16 units in the last place.
 
 --forward prints one JSON line for each parameter dtype (f32 as folded,
-bf16 as cost/measure.py and bench.py cast them) of one eager folded
-forward at batch 32, bf16 activations, each list over 5 rounds: `ms`
+bf16 as cost/measure.py casts them) of one eager folded forward at batch
+32, bf16 activations, each list over 5 rounds: `ms`
 (CUDA events around 20 back-to-back forwards: device or host time,
 whichever is longer) and `host_ms` (host clock per forward, enqueue
 only). --root imports the tfnas_tpu_torch package under DIR instead of
